@@ -1,28 +1,42 @@
 """On-card smoke run of mvoc_tpu_torch: builds the CUDA kernels, drives the
-main path (invert -> stream composite -> decode) at full I2VGen-XL width on
-one CUDA card, and holds every kernel against its plain PyTorch version at
-every shape that run launched it with.
+main paths (invert -> stream composite -> decode in bf16, then the same in
+int8) at full I2VGen-XL width on one CUDA card, and holds every kernel
+against its plain PyTorch version at every shape those runs launched it with.
 
     python3 chip_smoke.py [--steps 3] [--seed 0]
 
 Phases, in order (each failure ends the run with a non-zero exit):
   0. the card (nvidia-smi name and power limit), torch / CUDA versions, TF32;
   1. the kernel build (nvcc, one process per source, in parallel);
-  2. the slice at full width, bf16 weights from a seed, fp32 latents:
+  2. the bf16 slice at full width, bf16 weights from a seed, fp32 latents:
      invert a background and two object videos, then
      sample_composite(two_pass="stream") with N=2 rectangle masks in the
      natural temporal layout and a VAE decode.  Every kernel launch count is
      set to 0 just before and read just after; per composite step launches,
-     wall times and peak memory are printed;
+     wall times and peak memory are printed.  K3 must not launch here;
   3. one composite step through the fused path (two_pass=False) from the same
      inputs, against the stream path;
   4. a reference check on a small input: the full-width UNet in fp32 on the
-     card (kernels) against the same UNet in fp32 on the CPU (plain versions);
-  5. kernel phases: K1 and K2 at every distinct shape the slice launched, plus
-     a ragged 14400-token K1 case; each against its plain version computed in
-     fp32 from the same bf16 inputs, with its time, the plain version's time,
-     the time of one PyTorch library call of the same function (a yardstick
-     the port never calls), and the least time the card could take.
+     card (kernels) against the same UNet in fp32 on the CPU (plain
+     versions); then the same UNet quantized with enable_int8's "full"
+     selection, the card replaying the CPU run's int8 activations
+     (utils.testing.ActivationTape), whose difference must stay under a
+     tenth of the int8-vs-fp32 drift on the CPU;
+  5. the int8 slice: enable_int8(mode="mixed") on the same weights, then the
+     phase-2 path again (3 inversions, the stream composite, the decode),
+     with counts reset just before and read just after; K3 must launch in
+     the inversions and in the composite steps;
+  6. one stream composite step with enable_int8(mode="full") on the same
+     seeded weights (a fresh pipeline), so that the im2col convolutions
+     reach the card;
+  7. kernel phases: K1 and K2 at every distinct shape the bf16 slice
+     launched, plus a ragged 14400-token K1 case, each against its plain
+     version computed in fp32 from the same bf16 inputs; K3 at every
+     (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
+     bitwise against its plain version.  Each with its time, the plain
+     version's time, the time of one PyTorch library call of the same
+     function (a yardstick the port never calls), and the least time the
+     card could take.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The per-shape table also goes to
 chiprun_out/chip_smoke_phases.json.
@@ -46,6 +60,7 @@ import time
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # bf16 kernel vs fp32 plain on unit-variance inputs: |err| <= TOL_BF16 * max|plain|.
 # Tied to the output's own scale (which falls as 1/sqrt(Sk) for K1): the
@@ -53,13 +68,24 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # 2^-9 of what they round, so the kernel's error stays a few 1e-3 of max|plain|
 TOL_BF16 = 2e-2
 TOL_REF = 1e-3             # fp32 card vs fp32 CPU, relative to max |output|
+# int8 card vs int8 CPU, the card replaying the CPU's int8 activations: the
+# difference must stay under this share of the int8-vs-fp32 drift (the
+# goldens' rule), and the card's own quantization may put at most this
+# share of the elements one step from the CPU's (fp32 roundings)
+TOL_INT8_SHARE = 0.1
+TOL_FLIP_SHARE = 1e-5
+# K3 vs its plain version: integer sums are exact, the epilogue is the same
+TOL_S8 = 0.0
 
 KERNELS = {
     "flash_attention": dict(source="mvoc_tpu_torch/csrc/flash_attention.cu",
                             replaces="mvoc_tpu/ops/attention.py:148"),
     "frame_attention": dict(source="mvoc_tpu_torch/csrc/frame_attention.cu",
                             replaces="mvoc_tpu/ops/attention.py:270"),
+    "s8_matmul": dict(source="mvoc_tpu_torch/csrc/s8_gemm.cu",
+                      replaces="mvoc_tpu/ops/s8gemm.py:101"),
 }
+PROMPT = "a red boat and a surfer on the sea"
 
 
 def log(*a):
@@ -117,6 +143,125 @@ def synthetic_video(rng, frames: int, size: int):
 
 
 # ---------------------------------------------------------------------------
+# launch counters of every kernel
+# ---------------------------------------------------------------------------
+
+
+def _counter_modules():
+    from mvoc_tpu_torch.ops import attention as A
+    from mvoc_tpu_torch.ops import s8gemm as S8
+
+    return A, S8
+
+
+def reset_counts() -> None:
+    for mod in _counter_modules():
+        mod.reset_launch_counts()
+
+
+def read_counts():
+    """({kernel: launches}, {kernel: {signature: launches}}) of all kernels."""
+    launches, shapes = {}, {}
+    for mod in _counter_modules():
+        launches.update(mod.LAUNCHES)
+        shapes.update({k: dict(v) for k, v in mod.LAUNCH_SHAPES.items()})
+    return launches, shapes
+
+
+def _minus(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+# ---------------------------------------------------------------------------
+# the slice: invert -> stream composite -> decode
+# ---------------------------------------------------------------------------
+
+
+def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
+    """Invert the three videos, composite (stream, N=2) and decode, with every
+    launch count set to 0 just before and read just after.  The trajectory
+    stores stay under the returned "root" until the caller removes it."""
+    import torch
+
+    from mvoc_tpu_torch.io.trajectory import TrajectoryStore
+
+    nf, size = len(videos[0]), videos[0][0].size[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix=f"mvoc_smoke_{tag}_")
+    dirs = [os.path.join(tmp, name) for name in ("bg", "obj0", "obj1")]
+    t_main = time.perf_counter()
+    inv_secs = []
+    for d, frames in zip(dirs, videos):
+        (_, traj), secs = sync_time(lambda: pipe.invert(
+            frames, height=size, width=size, num_frames=nf, num_inference_steps=steps,
+            seed=seed, output_dir=d))
+        if not np.isfinite(traj).all():
+            raise RuntimeError(f"{tag}: inversion of {d} gave non-finite latents")
+        inv_secs.append(secs)
+        log(f"{tag} invert {os.path.basename(d)}: {steps} steps in {secs:.2f} s "
+            f"(trajectory {traj.shape})")
+    inv_launch, inv_shapes = read_counts()
+    step_times = []
+    last = [time.perf_counter()]
+
+    def on_step(i):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_times.append(now - last[0])
+        last[0] = now
+
+    comp_kwargs = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps,
+                       guidance_scale=9.0, seed=seed)
+    stores = [TrajectoryStore(d) for d in dirs]
+
+    def composite():
+        last[0] = time.perf_counter()
+        return pipe.sample_composite(
+            PROMPT, videos[0][0], videos[0], videos[0], videos[1:], masks, masks, stores[0],
+            stores[1:], two_pass="stream", decode=False, step_callback=on_step, **comp_kwargs)
+
+    final, secs = sync_time(composite)
+    n_comp = len(step_times)
+    launch_c, shapes_c = read_counts()
+    comp_launch = _minus(launch_c, inv_launch)
+    comp_shapes = {k: _minus(v, inv_shapes[k]) for k, v in shapes_c.items()}
+    video, dec_secs = sync_time(lambda: pipe.decode_latents(final, decode_chunk_size=1))
+    main_secs = time.perf_counter() - t_main
+    launches, shapes = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (torch.isfinite(final).all() and np.isfinite(video).all()):
+        raise RuntimeError(f"{tag}: composite or decode gave non-finite values")
+    if video.shape != (nf, size, size, 3):
+        raise RuntimeError(f"{tag}: decoded video shape {video.shape}")
+    log(f"{tag} composite (stream, N=2, natural layout): {n_comp} steps in {secs:.2f} s, "
+        f"s/step {[round(t, 3) for t in step_times]}; decode {dec_secs:.2f} s; "
+        f"main path {main_secs:.1f} s; peak memory {peak:.2f} GiB")
+    log(f"{tag} launches on the main path: {launches}; in the inversions: {inv_launch}; "
+        f"per composite step: { {k: v / max(n_comp, 1) for k, v in comp_launch.items()} }")
+    return dict(final=final, root=tmp, stores=stores, launches=launches, shapes=shapes,
+                inv_launch=inv_launch, comp_launch=comp_launch, comp_shapes=comp_shapes,
+                steps=n_comp, step_s=step_times, inv_s=inv_secs, decode_s=dec_secs,
+                main_s=main_secs, peak_gib=peak)
+
+
+def one_step_inputs(pipe, videos, masks, stores, steps: int, seed: int, two_pass):
+    """The composite's prepared inputs cut to its first step."""
+    nf, size = len(videos[0]), videos[0][0].size[0]
+    prep = pipe._prepare_composite(
+        PROMPT, videos[0][0], videos[0], videos[0], videos[1:], masks, masks, stores[0],
+        stores[1:], height=size, width=size, num_frames=nf, num_inference_steps=steps,
+        guidance_scale=9.0, seed=seed, two_pass=two_pass)
+    init, cond, sched, ms, pb, ps, cw = prep
+    one = dataclasses.replace(
+        sched, bg_traj=sched.bg_traj[:1], obj_traj=sched.obj_traj[:1],
+        gate_spatial=sched.gate_spatial[:1], gate_temporal=sched.gate_temporal[:1],
+        gate_conv=sched.gate_conv[:1], fusion_mask=sched.fusion_mask[:1],
+        timesteps=sched.timesteps[:1])
+    return init, cond, one, ms, pb, ps, cw
+
+
+# ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 
@@ -153,7 +298,7 @@ def flash_phase(sig, gen):
     flops = 4.0 * b * h * sq * sk * d
     nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
     return dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                bytes=nbytes)
+                bytes=nbytes, peak=PEAK_BF16_FLOPS)
 
 
 def frame_phase(sig, gen):
@@ -191,13 +336,64 @@ def frame_phase(sig, gen):
     flops = 4.0 * n * f * f * d
     nbytes = 4.0 * n * f * d * 2
     return dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                bytes=nbytes)
+                bytes=nbytes, peak=PEAK_BF16_FLOPS)
+
+
+def s8_phase(sig, gen):
+    import torch
+
+    from mvoc_tpu_torch.ops import s8gemm as S8
+
+    m, k, n, dt = sig
+    out_dtype = getattr(torch, dt.split(".")[-1])
+    dev = torch.device("cuda")
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    # the main path's weight: the [K, N] view of [N, K] storage
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t()
+    sx = torch.rand(m, generator=gen, device=dev) * 0.1 + 1e-3
+    sw = torch.rand(n, generator=gen, device=dev) * 0.1 + 1e-3
+    out = S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+    # plain version (exact float64 product), row-chunked to keep its float64
+    # copy of x under ~2 GB
+    chunk = max(1, int(2e9 // (8 * k)))
+
+    def plain():
+        return _chunked(lambda x, s: S8.s8_matmul_plain(x, wq, s, sw, out_dtype=out_dtype),
+                        m, chunk, xq, sx)
+
+    ref = plain()
+    exact = torch.equal(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = cuda_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype))
+    plain_ms = cuda_ms(plain, reps=2)
+    lib_ms = None
+    # torch._int_mm (cuBLASLt) plus the dequantise: M > 16, K and N multiples of 8
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        def library():
+            acc = torch._int_mm(xq, wq)
+            return (acc.float() * (sx[:, None] * sw[None, :])).to(out_dtype)
+        try:
+            lib = library()
+            if not torch.equal(lib, ref):
+                log(f"  note: library call differs from plain at {sig}")
+            lib_ms = cuda_ms(library)
+        except RuntimeError as exc:  # a layout cuBLASLt refuses
+            log(f"  library call refused at {sig}: {str(exc).splitlines()[0]}")
+    out_bytes = torch.finfo(out_dtype).bits // 8
+    flops = 2.0 * m * k * n
+    nbytes = float(m * k + k * n + 4 * (m + n) + m * n * out_bytes)
+    return dict(err=err, tol=TOL_S8, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
+                bytes=nbytes, peak=PEAK_INT8_OPS, exact=exact)
 
 
 def bound(ph):
-    t_ops = ph["flops"] / PEAK_BF16_FLOPS
+    t_ops = ph["flops"] / ph["peak"]
     t_bytes = ph["bytes"] / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fmt_ms(x):
+    return "null" if x is None else f"{x:.4f}"
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +424,8 @@ def main() -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    from mvoc_tpu_torch.io.trajectory import TrajectoryStore
     from mvoc_tpu_torch.ops import _build
-    from mvoc_tpu_torch.ops import attention as A
+    from mvoc_tpu_torch.ops import quantize as Q
     from mvoc_tpu_torch.pipeline import core
     from mvoc_tpu_torch.utils import testing as tt
 
@@ -244,10 +439,10 @@ def main() -> int:
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {stem}: {len(regs)} kernel instantiations, registers <= {max(regs)}, "
             f"spill stores <= {max(spills)} bytes")
-    for stem in KERNELS:
-        _build.load(stem)
+    for meta in KERNELS.values():
+        _build.load(os.path.splitext(os.path.basename(meta["source"]))[0])
 
-    # 2. the slice at full width
+    # 2. the bf16 slice at full width
     rng = np.random.default_rng(args.seed)
     size, nf, steps = 512, 16, args.steps  # the main path: 16 frames at 512 px
     pipe, t_build = sync_time(lambda: tt.build_full_pipeline(seed=args.seed))
@@ -261,77 +456,18 @@ def main() -> int:
     masks[0, :, lat // 8: lat // 2, lat // 8: lat // 2] = 1.0
     masks[1, :, lat // 2: 7 * lat // 8, 3 * lat // 8: 7 * lat // 8] = 1.0
 
-    torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
-    tmp = tempfile.mkdtemp(prefix="mvoc_smoke_")
-    dirs = [os.path.join(tmp, name) for name in ("bg", "obj0", "obj1")]
-    t_main = time.perf_counter()
-    for d, frames in zip(dirs, videos):
-        (_, traj), secs = sync_time(lambda: pipe.invert(
-            frames, height=size, width=size, num_frames=nf, num_inference_steps=steps,
-            seed=args.seed, output_dir=d))
-        if not np.isfinite(traj).all():
-            raise RuntimeError(f"inversion of {d} gave non-finite latents")
-        log(f"invert {os.path.basename(d)}: {steps} steps in {secs:.2f} s "
-            f"(trajectory {traj.shape})")
-    before = dict(A.LAUNCHES)
-    before_shapes = {k: dict(v) for k, v in A.LAUNCH_SHAPES.items()}
-    step_times = []
-    last = [time.perf_counter()]
-
-    def on_step(i):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        step_times.append(now - last[0])
-        last[0] = now
-
-    main_frames = videos[0]
-    comp_kwargs = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps,
-                       guidance_scale=9.0, seed=args.seed)
-    stores = [TrajectoryStore(d) for d in dirs]
-
-    def composite():
-        last[0] = time.perf_counter()
-        return pipe.sample_composite(
-            "a red boat and a surfer on the sea", main_frames[0], main_frames, videos[0],
-            videos[1:], masks, masks, stores[0], stores[1:], two_pass="stream",
-            decode=False, step_callback=on_step, **comp_kwargs)
-
-    final, secs = sync_time(composite)
-    n_comp = len(step_times)
-    comp_launch = {k: A.LAUNCHES[k] - before[k] for k in A.LAUNCHES}
-    comp_shapes = {k: {sig: n - before_shapes[k].get(sig, 0) for sig, n in v.items()}
-                   for k, v in A.LAUNCH_SHAPES.items()}
-    video, dec_secs = sync_time(lambda: pipe.decode_latents(final, decode_chunk_size=1))
-    main_secs = time.perf_counter() - t_main
-    launches = dict(A.LAUNCHES)
-    shapes = {k: dict(v) for k, v in A.LAUNCH_SHAPES.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if not (torch.isfinite(final).all() and np.isfinite(video).all()):
-        raise RuntimeError("composite or decode gave non-finite values")
-    if video.shape != (nf, size, size, 3):
-        raise RuntimeError(f"decoded video shape {video.shape}")
-    log(f"composite (stream, N=2, natural layout): {n_comp} steps in {secs:.2f} s, "
-        f"s/step {[round(t, 3) for t in step_times]}; decode {dec_secs:.2f} s; "
-        f"main path {main_secs:.1f} s; peak memory {peak:.2f} GiB")
-    log(f"launches on the main path: {launches}; per composite step: "
-        f"{ {k: v / max(n_comp, 1) for k, v in comp_launch.items()} }")
-    for name, n in launches.items():
-        if n <= 0:
+    bf16 = run_slice(pipe, videos, masks, steps, args.seed, "bf16")
+    for name in ("flash_attention", "frame_attention"):
+        if bf16["launches"][name] <= 0:
             raise RuntimeError(f"{name} was never launched on the main path")
-        if comp_launch[name] <= 0:
+        if bf16["comp_launch"][name] <= 0:
             raise RuntimeError(f"{name} was never launched in the composite steps")
+    if bf16["launches"]["s8_matmul"] != 0:
+        raise RuntimeError("s8_matmul launched on the bf16 path")
 
     # 3. one fused step against one stream step, same inputs
-    prep = pipe._prepare_composite(
-        "a red boat and a surfer on the sea", main_frames[0], main_frames, videos[0], videos[1:],
-        masks, masks, stores[0], stores[1:], two_pass="stream", **comp_kwargs)
-    init, cond, sched, ms, pb, ps, cw = prep
-    one = dataclasses.replace(
-        sched, bg_traj=sched.bg_traj[:1], obj_traj=sched.obj_traj[:1],
-        gate_spatial=sched.gate_spatial[:1], gate_temporal=sched.gate_temporal[:1],
-        gate_conv=sched.gate_conv[:1], fusion_mask=sched.fusion_mask[:1],
-        timesteps=sched.timesteps[:1])
+    init, cond, one, ms, pb, ps, cw = one_step_inputs(pipe, videos, masks, bf16["stores"],
+                                                      steps, args.seed, "stream")
     outs = {}
     for tp_mode in ("stream", False):
         outs[tp_mode], secs = sync_time(lambda: core.pnp_composite_core(
@@ -343,11 +479,13 @@ def main() -> int:
     log(f"stream vs fused, one step (bf16): max |diff| {diff:.4g}, max |x| {scale:.4g}")
     if not math.isfinite(diff):
         raise RuntimeError("stream/fused step gave non-finite values")
-    shutil.rmtree(tmp)
+    shutil.rmtree(bf16["root"])
+    if read_counts()[0]["s8_matmul"] != 0:
+        raise RuntimeError("s8_matmul launched on the bf16 path")
 
-    # 4. reference on a small input: fp32 UNet on the card vs on the CPU
+    # 4. reference on a small input: fp32 UNet on the card vs on the CPU, and
+    # the same UNet quantized ("full" selection) on the card vs on the CPU
     unet32 = copy.deepcopy(pipe.unet).float()
-    del pipe
     torch.cuda.empty_cache()
     g = np.random.default_rng(args.seed + 1)
     rf, rl = 4, 16
@@ -357,10 +495,25 @@ def main() -> int:
         g.standard_normal(s).astype(np.float32) for s in
         ((1, rf, rl, rl, 4), (1, rf, rl, rl, 4), (1, rf, d_ctx), (1, 77, d_ctx))]
     with torch.inference_mode():
+        q32 = copy.deepcopy(unet32)
+        Q.quantize_unet_(q32, Q.default_unet_predicate)  # on the card, once
         out_gpu = unet32(*(torch.as_tensor(x, device="cuda") for x in inp)).float().cpu()
+        outq_free = q32(*(torch.as_tensor(x, device="cuda") for x in inp)).float().cpu()
         unet_cpu = unet32.cpu()
         out_cpu = unet_cpu(*(torch.as_tensor(x) for x in inp))
-    del unet32, unet_cpu
+        del unet32, unet_cpu
+        q32.cpu()
+        tape = tt.ActivationTape()
+        with tape.active():
+            outq_cpu = q32(*(torch.as_tensor(x) for x in inp))
+        q32.cuda()
+        replay = tt.ActivationTape(tape.records)
+        reset_counts()
+        with replay.active():
+            outq_gpu = q32(*(torch.as_tensor(x, device="cuda") for x in inp)).float().cpu()
+        if read_counts()[0]["s8_matmul"] <= 0:
+            raise RuntimeError("the int8 reference forward launched no s8_matmul")
+        del q32, tape
     ref_err = (out_gpu - out_cpu).abs().max().item()
     ref_scale = out_cpu.abs().max().item()
     log(f"reference: full-width UNet fp32, {rf} frames at {rl}x{rl} latents, card (kernels) "
@@ -368,56 +521,132 @@ def main() -> int:
         f"(tolerance {TOL_REF} relative)")
     if not (ref_err <= TOL_REF * ref_scale):
         raise RuntimeError("full-width UNet on the card disagrees with the CPU reference")
-
-    # 5. kernel phases at every shape the main path launched, + ragged 14400
+    # int8 is discontinuous: the card's and the CPU's fp32 roundings flip a
+    # few activations by one step, and the flips grow downstream.  So the
+    # card replays the CPU run's int8 activations (checking its own against
+    # them), and the outputs are compared under the goldens' rule
+    q_err = (outq_gpu - outq_cpu).abs().max().item()
+    q_free = (outq_free - outq_cpu).abs().max().item()
+    q_drift = (outq_cpu - out_cpu).abs().max().item()
+    log(f"reference, int8 (full selection, fp32 activations): card replaying the CPU's int8 "
+        f"activations vs CPU max |diff| {q_err:.3g}; int8 vs fp32 on the CPU {q_drift:.3g}; "
+        f"ratio {q_err / max(q_drift, 1e-30):.3g} (limit {TOL_INT8_SHARE}). The card's own "
+        f"quantization: {replay.calls} calls, {replay.flips} of {replay.elements} elements one "
+        f"step from the CPU's (max {replay.max_step}), scales within "
+        f"{replay.max_scale_rel:.3g}; without the replay the card is {q_free:.3g} from the CPU")
+    if not (math.isfinite(q_drift) and q_drift > 0 and q_err <= TOL_INT8_SHARE * q_drift):
+        raise RuntimeError("full-width int8 UNet on the card disagrees with the CPU reference")
+    if not (replay.calls == len(replay.records) and replay.max_step <= 1
+            and replay.flips <= TOL_FLIP_SHARE * replay.elements):
+        raise RuntimeError("the card's int8 activations disagree with the CPU's")
     torch.cuda.empty_cache()
+
+    # 5. the int8 slice (mixed selection) on the same weights
+    _, q_secs = sync_time(lambda: pipe.enable_int8(mode="mixed"))
+    n_q = sum(isinstance(m, (Q.QuantLinear, Q.QuantConv)) for m in pipe.unet.modules())
+    log(f"enable_int8(mode='mixed'): {n_q} layers quantized in {q_secs:.2f} s")
+    int8 = run_slice(pipe, videos, masks, steps, args.seed, "int8-mixed")
+    if int8["inv_launch"]["s8_matmul"] <= 0:
+        raise RuntimeError("s8_matmul was never launched in the int8 inversions")
+    if int8["comp_launch"]["s8_matmul"] <= 0:
+        raise RuntimeError("s8_matmul was never launched in the int8 composite steps")
+    drift = (int8["final"] - bf16["final"]).abs().max().item()
+    log(f"int8-mixed vs bf16 composite latents: max |diff| {drift:.4g} of max |x| "
+        f"{bf16['final'].abs().max().item():.4g}")
+
+    # 6. one stream composite step in int8 "full", on the same seeded weights
+    del pipe
+    torch.cuda.empty_cache()
+    pipe = tt.build_full_pipeline(seed=args.seed)
+    pipe.enable_int8(mode="full")
+    init, cond, one, ms, pb, ps, cw = one_step_inputs(pipe, videos, masks, int8["stores"],
+                                                      steps, args.seed, "stream")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    full_out, full_secs = sync_time(lambda: core.pnp_composite_core(
+        pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
+        guidance_scale=9.0, two_pass="stream", capture_weights=cw))
+    full_launch, full_shapes = read_counts()
+    full_peak = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(int8["root"])
+    if not torch.isfinite(full_out).all():
+        raise RuntimeError("the int8 'full' composite step gave non-finite values")
+    if full_launch["s8_matmul"] <= 0:
+        raise RuntimeError("s8_matmul was never launched in the int8 'full' step")
+    log(f"int8-full: one stream composite step in {full_secs:.2f} s, launches {full_launch}, "
+        f"peak memory {full_peak:.2f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 7. kernel phases at every shape the paths launched (+ ragged cases)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    s8_shapes = dict(int8["shapes"]["s8_matmul"])
+    for sig in full_shapes["s8_matmul"]:
+        s8_shapes.setdefault(sig, 0)
+    plans = (
+        ("flash_attention", flash_phase, bf16["shapes"]["flash_attention"],
+         [(1, 5, 14400, 14400, 64, "torch.bfloat16")]),
+        ("frame_attention", frame_phase, bf16["shapes"]["frame_attention"], []),
+        ("s8_matmul", s8_phase, s8_shapes,
+         [(17, 36, 9, "torch.bfloat16"), (17, 36, 9, "torch.float32")]),
+    )
     table = []
-    extra = {"flash_attention": [(1, 5, 14400, 14400, 64, "torch.bfloat16")],
-             "frame_attention": []}
-    for name, run in (("flash_attention", flash_phase), ("frame_attention", frame_phase)):
-        sigs = sorted(shapes[name]) + extra[name]
-        for sig in sigs:
+    for name, run, launched, extra in plans:
+        for sig in sorted(launched) + [e for e in extra if e not in launched]:
             ph = run(sig, gen)
             b_ms, basis = bound(ph)
-            row = dict(kernel=name, shape=list(sig), launches=shapes[name].get(sig, 0),
+            row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
+                       full_step_launches=full_shapes.get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
             table.append(row)
+            peak_txt = "989 TF/s" if ph["peak"] == PEAK_BF16_FLOPS else "1979 TOP/s int8"
             log(f"phase {name} {sig}: max_abs_err {ph['err']:.3g} (tol {ph['tol']:.3g}) "
                 f"kernel_ms {ph['ms']:.4f} plain_ms {ph['plain_ms']:.4f} "
-                f"library_ms {ph['library_ms']:.4f} bound_ms {b_ms:.4f} ({basis}: "
-                f"{'FLOPs at 989 TF/s' if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
+                f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
+                f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
                 f"main-path launches {row['launches']}")
-            if not ph["err"] <= ph["tol"]:
+            if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
             torch.cuda.empty_cache()
 
-    # each kernel's device time in one composite step: its composite-only
-    # launches at each shape times that shape's measured kernel time
+    # each kernel's device time in one composite step of the path that ran
+    # it: composite-only launches at each shape times that shape's kernel time
+    path_of = {"flash_attention": bf16, "frame_attention": bf16, "s8_matmul": int8}
     per_step_ms = {}
-    for name in KERNELS:
-        ms_of = {tuple(r["shape"]): r["ms"] for r in table if r["kernel"] == name}
-        per_step_ms[name] = sum(n * ms_of[sig] for sig, n in comp_shapes[name].items()) / max(
-            n_comp, 1)
-    log(f"kernel device time per composite step (launches x phase kernel_ms): "
-        f"{ {k: round(v, 2) for k, v in per_step_ms.items()} } ms of "
-        f"{1e3 * sum(step_times) / max(n_comp, 1):.1f} ms wall")
+    for name, path in (("bf16", bf16), ("int8-mixed", int8)):
+        per_step_ms[name] = {}
+        for kname in KERNELS:
+            ms_of = {tuple(r["shape"]): r["ms"] for r in table if r["kernel"] == kname}
+            per_step_ms[name][kname] = sum(
+                n * ms_of[sig] for sig, n in path["comp_shapes"][kname].items()
+                if n and sig in ms_of) / max(
+                path["steps"], 1)
+        log(f"{name}: kernel device time per composite step (launches x phase kernel_ms): "
+            f"{ {k: round(v, 2) for k, v in per_step_ms[name].items()} } ms of "
+            f"{1e3 * sum(path['step_s']) / max(path['steps'], 1):.1f} ms wall")
 
     os.makedirs("chiprun_out", exist_ok=True)
+    summary = {tag: {k: v for k, v in path.items() if k not in ("final", "root", "stores",
+                                                                "shapes", "comp_shapes")}
+               for tag, path in (("bf16", bf16), ("int8_mixed", int8))}
     with open(os.path.join("chiprun_out", "chip_smoke_phases.json"), "w") as f:
-        json.dump(dict(card=card, launches=launches, per_step=comp_launch, steps=n_comp,
-                       step_s=step_times, kernel_ms_per_step=per_step_ms, peak_gib=peak,
-                       phases=table), f, indent=1)
+        json.dump(dict(card=card, paths=summary, int8_full_step=dict(
+            s=full_secs, launches=full_launch, peak_gib=full_peak),
+            kernel_ms_per_step=per_step_ms, reference=dict(
+                fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),
+            int8_vs_bf16_drift=drift, phases=table), f, indent=1)
 
+    # one row per kernel, from the main path that launched it
     kernels = []
     for name, meta in KERNELS.items():
+        path = path_of[name]
         rows = [r for r in table if r["kernel"] == name and r["launches"] > 0]
         head = max(rows, key=lambda r: r["bound_ms"] * r["launches"])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=launches[name],
+            launches=path["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in table if r["kernel"] == name),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"]))

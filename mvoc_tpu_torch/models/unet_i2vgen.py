@@ -362,7 +362,8 @@ class I2VGenXLUNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        # a norm's weight: it keeps the model dtype when convs quantize to int8
+        return self.conv_norm_out.weight.dtype
 
     def _context(self, b, f, h, w, image_latents, image_embeddings, encoder_hidden_states):
         """Per-frame context [B*F, 77 + 64 + C_in, D] from frame 0's image
@@ -388,7 +389,7 @@ class I2VGenXLUNet(nn.Module):
                 image_embeddings, encoder_hidden_states,
                 pnp: Optional[pnp_lib.PnPState] = None, pnp_capture: bool = False):
         cfg = self.config
-        dt, dev = self.dtype, self.conv_in.weight.device
+        dt, dev = self.dtype, self.conv_norm_out.weight.device
         b, f, h, w, c_in = sample.shape
         ch0 = cfg.block_out_channels[0]
         sample = sample.to(dt)

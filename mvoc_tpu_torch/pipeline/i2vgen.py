@@ -1,6 +1,6 @@
 """I2VGen-XL pipeline in PyTorch: host orchestration over the step loops
-(counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slice
-invert -> sample_composite).
+(counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices
+invert -> sample_composite and the int8 mode, enable_int8).
 
 The modules hold their own weights.  Every random draw of an entry point
 comes from one explicit `torch.Generator` seeded from `seed`, on the
@@ -23,6 +23,7 @@ from mvoc_tpu_torch.io.trajectory import TrajectoryStore
 from mvoc_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModelWithProjection, normalize_clip_image
 from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
 from mvoc_tpu_torch.models.vae import AutoencoderKL, sample_latents
+from mvoc_tpu_torch.ops import quantize
 from mvoc_tpu_torch.ops.ddim import DDIM, SchedulerConfig, inversion_timesteps, sampling_timesteps
 from mvoc_tpu_torch.pipeline import core
 from mvoc_tpu_torch.utils.device import resolve_device
@@ -49,6 +50,28 @@ class I2VGenXLPipeline:
         self.vae_scale_factor = vae.config.downscale_factor
         self.vae_scaling = vae.config.scaling_factor
         self.clip_image_size = image_encoder.config.image_size
+
+    def enable_int8(self, predicate=None, mode: str = "full") -> "I2VGenXLPipeline":
+        """Quantize the UNet's dense and conv weights to int8 (w8a8), in place.
+
+        mode="mixed" takes `ops.quantize.mixed_unet_predicate` (dense layers
+        with K >= 1280 and (3,1,1) temporal convs with C_in >= 1280, chosen
+        by shape), mode="full" `default_unet_predicate` (everything but the
+        time / fps embeddings, conv_in / conv_out and the image-latents
+        projections and temporal encoder); `predicate(names)` or
+        `predicate(names, leaf)` overrides the selection.  An approximate
+        mode: the int8 GEMMs run on K3.  The VAE and CLIP towers keep their
+        dtype.  Runs once, before the step loops; quantizing an
+        already-quantized layer is a no-op (it is no longer a float layer).
+        The JAX package's check against a device mesh waits for the
+        multi-GPU port."""
+        if mode not in ("full", "mixed"):
+            raise ValueError(f"enable_int8 mode {mode!r}: 'full' or 'mixed'")
+        pred = predicate if predicate is not None else (
+            quantize.mixed_unet_predicate if mode == "mixed" else quantize.default_unet_predicate)
+        n = len(quantize.quantize_unet_(self.unet, pred))
+        logger.info("UNet quantized to int8 (w8a8, %s selection): %d layers", mode, n)
+        return self
 
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)

@@ -7,10 +7,14 @@ zero biases, unit norm scales, the zero `conv4` of every
 TemporalConvLayer, and the CLIP embeddings' normal initialisers — so a
 random-weight run behaves like the random-weight runs of the JAX
 package.  All draws come from one seeded torch.Generator.
+
+`ActivationTape` records or replays the int8 activations of a run, for
+comparisons of int8 runs whose float activations differ by roundings.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -22,6 +26,7 @@ from mvoc_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextModel, CLIPVisio
 from mvoc_tpu_torch.models.layers import GroupNorm, LayerNorm, TemporalConvLayer
 from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
 from mvoc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from mvoc_tpu_torch.ops import quantize
 from mvoc_tpu_torch.ops.ddim import SchedulerConfig
 from mvoc_tpu_torch.pipeline.i2vgen import I2VGenXLPipeline
 from mvoc_tpu_torch.utils.device import resolve_device
@@ -133,3 +138,65 @@ def tiny_frames(n: int = TINY_FRAMES, size: int = TINY_HW, seed: int = 0):
     base = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
     return [Image.fromarray(np.roll(base, shift=i, axis=1)) for i in range(n)]
 
+
+class ActivationTape:
+    """Every activation quantization of ops/quantize.py, in call order.
+
+    An int8 network is discontinuous: where two runs' float activations
+    differ by roundings (two frameworks, or the card and the CPU), a value
+    next to a rounding boundary quantizes one step apart, and the step
+    propagates into further flips downstream, so at the tiny test widths a
+    1e-7 relative input perturbation moves the int8 output as far as int8
+    moves it from fp32.  To hold two int8 runs against each other, record
+    one run's (int8 activation, scale) pairs, then replay them in the other:
+    each call still quantizes its own input and counts how many elements it
+    would have quantized differently (`flips`, at most `max_step` apart) and
+    how far its scales are from the recorded ones (`max_scale_rel`), then
+    returns the recorded pair.  Records are CPU tensors (or numpy arrays).
+
+        tape = ActivationTape()              # record
+        with tape.active(): run_a()
+        replay = ActivationTape(tape.records)
+        with replay.active(): run_b()
+        assert replay.calls == len(replay.records)
+    """
+
+    def __init__(self, records=None):
+        self.replaying = records is not None
+        self.records = list(records) if self.replaying else []
+        self.calls = self.elements = self.flips = self.max_step = 0
+        self.max_scale_rel = 0.0
+
+    def _replay(self, q: torch.Tensor, s: torch.Tensor):
+        if self.calls >= len(self.records):
+            raise AssertionError(f"activation quantization {self.calls} was not recorded "
+                                 f"({len(self.records)} were)")
+        rq, rs = (torch.as_tensor(a).to(t.device) for a, t in zip(self.records[self.calls], (q, s)))
+        if rq.shape != q.shape or rs.shape != s.shape:
+            raise AssertionError(f"activation quantization {self.calls}: shapes {tuple(q.shape)} / "
+                                 f"{tuple(s.shape)}, recorded {tuple(rq.shape)} / {tuple(rs.shape)}")
+        step = (q.to(torch.int16) - rq.to(torch.int16)).abs()
+        self.elements += q.numel()
+        self.flips += int((step > 0).sum())
+        self.max_step = max(self.max_step, int(step.max()) if step.numel() else 0)
+        self.max_scale_rel = max(self.max_scale_rel, float(((s - rs).abs() / rs).max()))
+        return rq, rs
+
+    @contextlib.contextmanager
+    def active(self):
+        orig = quantize._quantize_activation
+
+        def taped(x, reduce_axes):
+            q, s = orig(x, reduce_axes)
+            if self.replaying:
+                q, s = self._replay(q, s)
+            else:
+                self.records.append((q.cpu(), s.cpu()))
+            self.calls += 1
+            return q, s
+
+        quantize._quantize_activation = taped
+        try:
+            yield self
+        finally:
+            quantize._quantize_activation = orig

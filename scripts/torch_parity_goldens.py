@@ -15,6 +15,16 @@ limit, so this script runs the JAX package once and stores, as numpy:
   * a 3-step DDIM inversion (inputs and trajectory);
   * a 3-step PnP composite (fused): the inputs JAX's own _prepare_composite
     built from seeded frames, masks and trajectory stores, and the result;
+  * the int8 path (`enable_int8(mode="full")`'s selection,
+    `default_unet_predicate`): the quantized kernels (int8 data and scales),
+    the plain forward in both layouts, the inversion and the fused
+    composite, on the same inputs as the float cases, each with the tape
+    of its activation quantizations (every (int8 activation, scale) pair in
+    call order, taken with an ordered jax.debug.callback) for the port's
+    tests to replay (mvoc_tpu_torch.utils.testing.ActivationTape);
+  * the layer sets `quantize_params` selects at the full I2VGen-XL geometry
+    under `default_unet_predicate` and `mixed_unet_predicate` (from
+    `jax.eval_shape`, which takes ~10 s here);
   * a digest of the sources these outputs come from
     (tests/torch_support.py: GOLDEN_SOURCES).
 
@@ -75,6 +85,57 @@ def flatten(tree, prefix, out):
             out[key] = np.asarray(v)
 
 
+class Tape:
+    """Records every jq._quantize_activation of the programs traced while
+    active, in execution order."""
+
+    def __init__(self, jq):
+        self.jq, self.records = jq, []
+
+    def __enter__(self):
+        import jax
+
+        self.orig = self.jq._quantize_activation
+
+        def taped(x, reduce_axes):
+            q, scale = self.orig(x, reduce_axes)
+            jax.debug.callback(lambda q, s: self.records.append((np.asarray(q), np.asarray(s))),
+                               q, scale, ordered=True)
+            return q, scale
+
+        self.jq._quantize_activation = taped
+        return self
+
+    def __exit__(self, *exc):
+        self.jq._quantize_activation = self.orig
+
+    def store(self, out, case):
+        """int8/tape/<case>/{q, s}: the flattened records end to end;
+        .../{q_shapes, s_shapes}: their shapes, padded with -1."""
+        def shapes(arrs):
+            table = np.full((len(arrs), 6), -1, np.int64)
+            for i, a in enumerate(arrs):
+                table[i, :a.ndim] = a.shape
+            return table
+
+        qs, ss = [r[0] for r in self.records], [r[1] for r in self.records]
+        out[f"int8/tape/{case}/q"] = np.concatenate([q.reshape(-1) for q in qs])
+        out[f"int8/tape/{case}/s"] = np.concatenate([x.reshape(-1) for x in ss])
+        out[f"int8/tape/{case}/q_shapes"] = shapes(qs)
+        out[f"int8/tape/{case}/s_shapes"] = shapes(ss)
+        print(f"tape {case}: {len(qs)} activation quantizations", flush=True)
+
+
+def quantized_paths(tree, leaf_type):
+    """Key paths (tuples of names) of the `leaf_type` leaves of a pytree."""
+    import jax
+
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, leaf_type))[0]
+    return [tuple(str(k.key) for k in path) for path, leaf in flat
+            if isinstance(leaf, leaf_type)]
+
+
 def main() -> int:
     import jax
     import jax.numpy as jnp
@@ -87,6 +148,7 @@ def main() -> int:
     from mvoc_tpu.models import clip as jclip
     from mvoc_tpu.models import vae as jvae
     from mvoc_tpu.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
+    from mvoc_tpu.ops import quantize as jq
     from mvoc_tpu.ops.ddim import SchedulerConfig, inversion_timesteps
     from mvoc_tpu.pipeline import core
     from mvoc_tpu.pipeline.i2vgen import I2VGenXLPipeline
@@ -97,6 +159,24 @@ def main() -> int:
     shapes = jax.eval_shape(lambda: I2VGenXLUNet(UNetConfig.tiny()).init(jax.random.key(0), **x1))
     params = {"params": noisy_params(shapes["params"], np.random.default_rng(1))}
     flatten(params["params"], "params", out)
+    # the int8 path as the JAX pipeline's enable_int8(mode="full") runs it (jitted)
+    qparams = jax.jit(lambda p: jq.quantize_params(p, predicate=jq.default_unet_predicate))(params)
+    for path in quantized_paths(qparams["params"], jq.QuantizedTensor):
+        leaf = qparams["params"]
+        for k in path:
+            leaf = leaf[k]
+        out["int8/params/" + "/".join(path) + "/data"] = np.asarray(leaf.data)
+        out["int8/params/" + "/".join(path) + "/scale"] = np.asarray(leaf.scale)
+    full_x = {k: jnp.asarray(v) for k, v in unet_inputs(1, 0).items()}
+    d_full = UNetConfig().cross_attention_dim
+    full_x.update(image_embeddings=jnp.zeros((1, F, d_full)),
+                  encoder_hidden_states=jnp.zeros((1, 7, d_full)))
+    full = jax.eval_shape(lambda: I2VGenXLUNet(UNetConfig()).init(jax.random.key(0), **full_x))
+    for name, pred in (("default", jq.default_unet_predicate), ("mixed", jq.mixed_unet_predicate)):
+        q = jax.eval_shape(lambda p: jq.quantize_params(p, predicate=pred), full["params"])
+        out[f"int8/selection/{name}"] = np.array(
+            sorted("/".join(p[:-1]) for p in quantized_paths(q, jq.QuantizedTensor)))
+    print("int8 params and selections: done", flush=True)
 
     # UNet: plain forward and the stream path, in both temporal layouts
     binary, soft = masks()
@@ -113,6 +193,11 @@ def main() -> int:
     for layout, natural in (("standard", False), ("natural", True)):
         unet = I2VGenXLUNet(dataclasses.replace(UNetConfig.tiny(), temporal_natural_layout=natural))
         out[f"unet/{layout}/plain_out"] = np.asarray(jax.jit(unet.apply)(params, **plain_in))
+        with Tape(jq) as tape:
+            int8_out = jax.jit(unet.apply)(qparams, **plain_in)
+            out[f"unet/{layout}/int8_out"] = np.asarray(int8_out)
+            jax.effects_barrier()
+        tape.store(out, f"unet_{layout}")
         capture = jax.jit(lambda p, x, s: unet.apply(p, **x, pnp=s, pnp_capture=True,
                                                      mutable=["pnp_features"])[1])
         feats = None
@@ -164,6 +249,12 @@ def main() -> int:
         out[f"invert/{k}"] = v
     out["invert/timesteps"] = ts
     out["invert/trajectory"] = np.asarray(traj)
+    with Tape(jq) as tape:
+        out["invert/int8_trajectory"] = np.asarray(core.ddim_inversion_core(
+            pipe._unet_apply, pipe.ddim, qparams, jnp.asarray(inv["x0"]), cond,
+            jnp.asarray(ts), 50))
+        jax.effects_barrier()
+    tape.store(out, "invert")
     print("inversion: done", flush=True)
 
     with tempfile.TemporaryDirectory() as root:
@@ -200,6 +291,13 @@ def main() -> int:
     for (h, w), v in cps.items():
         out[f"composite/pyr_soft/{h}x{w}"] = np.asarray(v)
     out["composite/fused_out"] = np.asarray(fused)
+    with Tape(jq) as tape:
+        out["composite/int8_fused_out"] = np.asarray(core.pnp_composite_core(
+            pipe._unet_apply, pipe.ddim, qparams, init, ccond, sched, ms, cpb, cps,
+            num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
+            two_pass=False))
+        jax.effects_barrier()
+    tape.store(out, "composite")
     print("composite: done", flush=True)
 
     out["sources_digest"] = np.array(golden_sources_digest())

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 / K2 vs their plain PyTorch versions, on a card.
+"""The CUDA kernels K1 / K2 / K3 vs their plain PyTorch versions, on a card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX:  python -m pytest --noconftest tests/test_torch_kernels.py
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mvoc_tpu_torch.ops import attention as tattn
+from mvoc_tpu_torch.ops import s8gemm as ts8
 
 # bf16 kernel vs plain: |err| <= BF16_REL * max|plain|.  The roundings of the
 # pre-scaled q, of p and of the output each cost up to 2^-9 of what they
@@ -81,3 +82,71 @@ def test_unsupported_head_dim_raises_on_cuda(cuda_device):
     x = torch.zeros(1, 1, 70, 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tattn.flash_attention(x, x, x)
+
+
+def _s8_operands(device, m, k, n, seed=0, weight_nk=True):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    if weight_nk:  # the Quant modules' weight: the [K, N] view of [N, K] storage
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8).t()
+    else:
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=device, dtype=torch.int8)
+    sx = torch.rand(m, generator=g, device=device) * 0.1 + 1e-3
+    sw = torch.rand(n, generator=g, device=device) * 0.1 + 1e-3
+    return xq, wq, sx, sw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 1280, 320), (17, 36, 9), (300, 2880, 200),
+                                   (129, 1280, 257), (4096, 64, 128), (64, 23040, 64)])
+def test_s8_kernel_matches_plain_bitwise(cuda_device, out_dtype, m, k, n):
+    """Integer sums are exact and the epilogue is the same two fp32
+    multiplies: the kernel equals the plain version bit for bit (ragged M,
+    N and K tails, M = 1, K = 36 on the byte-wise load path)."""
+    xq, wq, sx, sw = _s8_operands(cuda_device, m, k, n)
+    before = ts8.LAUNCHES["s8_matmul"]
+    got = ts8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ts8.LAUNCHES["s8_matmul"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+def test_s8_kernel_extremes_and_row_major_weight(cuda_device):
+    """All operands at +-127 over the largest K of the int8 paths, and a
+    row-major [K, N] weight (re-laid by the wrapper)."""
+    m, k, n = 40, 23040, 24
+    xq = torch.full((m, k), 127, dtype=torch.int8, device=cuda_device)
+    xq[1::2] = -127
+    wq = torch.full((n, k), 127, dtype=torch.int8, device=cuda_device).t()
+    sx = torch.ones(m, device=cuda_device)
+    sw = torch.ones(n, device=cuda_device)
+    got = ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.float32)
+    assert torch.equal(got[0], torch.full((n,), float(k * 127 * 127), device=cuda_device))
+    assert torch.equal(got, ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.float32))
+    xq, wq, sx, sw = _s8_operands(cuda_device, 33, 96, 40, weight_nk=False)
+    assert torch.equal(ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.bfloat16),
+                       ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_s8_kernel_refuses_what_it_cannot_take(cuda_device):
+    xq, wq, sx, sw = _s8_operands(cuda_device, 8, 32, 8)
+    with pytest.raises(ValueError, match="out dtype"):
+        ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="int8"):
+        ts8.s8_matmul(xq.to(torch.int16), wq, sx, sw, out_dtype=torch.float32)
+    big = torch.zeros((2, ts8.MAX_K + 1), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="overflow"):
+        ts8.s8_matmul(big, big.t(), sx[:2], sx[:2], out_dtype=torch.float32)
+
+
+def test_s8_on_cpu_takes_the_plain_version_and_counts_nothing():
+    xq, wq, sx, sw = _s8_operands(torch.device("cpu"), 17, 36, 9)
+    before = ts8.LAUNCHES["s8_matmul"]
+    got = ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.float32)
+    assert ts8.LAUNCHES["s8_matmul"] == before
+    exact = (xq.long() @ wq.long()).float() * (sx[:, None] * sw[None, :])
+    assert torch.equal(got, exact)

@@ -7,7 +7,12 @@ same (noise-replaced) weights and the same inputs:
   against JAX's fused composite, on inputs the JAX pipeline's own
   _prepare_composite built (JAX's stream path is held equal to its fused
   path by tests/test_pipeline.py);
-* the port's tiny invert -> sample_composite end to end on the CPU;
+* the int8 path (enable_int8's "full" selection): the 3-step inversion and
+  the 3-step composite, fused and stream, against JAX's int8 inversion and
+  fused composite, replaying the JAX runs' tapes of int8 activations (see
+  test_torch_unet.py for why);
+* the port's tiny invert -> sample_composite end to end on the CPU, in
+  fp32 and in int8;
 * the entry points refuse to fall back to the CPU without CUDA.
 
 The JAX side of the inversion and composite cores (and the tiny pipeline's
@@ -16,6 +21,7 @@ scripts/torch_parity_goldens.py: compiling those scans here would cost
 minutes of CPU that tier-1 cannot spare.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -36,11 +42,13 @@ from mvoc_tpu_torch.models import clip as tclip
 from mvoc_tpu_torch.models import convert as tconvert
 from mvoc_tpu_torch.models import vae as tvae
 from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
+from mvoc_tpu_torch.ops import quantize as tq
 from mvoc_tpu_torch.ops.ddim import SchedulerConfig
 from mvoc_tpu_torch.pipeline import core as tcore
 from mvoc_tpu_torch.pipeline.i2vgen import I2VGenXLPipeline
 from mvoc_tpu_torch.utils import testing as tt
-from torch_support import load_goldens, nest
+from torch_support import (batch_slice, check_int8, check_int8_replay, load_goldens, load_tape,
+                           nest)
 from torch_support import yield_cpu  # noqa: F401  (autouse: low CPU priority)
 
 F, HW, LAT = 2, 16, 8
@@ -185,10 +193,8 @@ def _pyramid(goldens, name):
             for k, v in goldens.items() if k.startswith(prefix)}
 
 
-@pytest.fixture(scope="module")
-def port_composites(goldens, tpipe):
-    """The port's composite on the inputs JAX's _prepare_composite built,
-    fused and stream."""
+def _composite(goldens, tpipe, unet, two_pass):
+    """The port's composite on the inputs JAX's _prepare_composite built."""
     s = lambda name: goldens[f"composite/sched/{name}"]
     sched = tcore.CompositeSchedule(
         bg_traj=torch.from_numpy(s("bg_traj")), obj_traj=torch.from_numpy(s("obj_traj")),
@@ -196,14 +202,20 @@ def port_composites(goldens, tpipe):
         gate_temporal=s("gate_temporal"), gate_conv=s("gate_conv"),
         fusion_mask=s("fusion_mask"), timesteps=s("timesteps"))
     pb, ps = _pyramid(goldens, "pyr_bin"), _pyramid(goldens, "pyr_soft")
-    return {two_pass: tcore.pnp_composite_core(
-        tpipe.unet, tpipe.ddim, torch.from_numpy(goldens["composite/init"]),
+    return tcore.pnp_composite_core(
+        unet, tpipe.ddim, torch.from_numpy(goldens["composite/init"]),
         _cond(goldens, "composite/cond"), sched,
         torch.from_numpy(goldens["composite/masks_soft"]), pb, ps,
         num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
         two_pass=two_pass,
         capture_weights=tp.build_capture_weights(pb, ps, True) if two_pass else None).numpy()
-        for two_pass in (False, "stream")}
+
+
+@pytest.fixture(scope="module")
+def port_composites(goldens, tpipe):
+    """The port's composite, fused and stream."""
+    return {two_pass: _composite(goldens, tpipe, tpipe.unet, two_pass)
+            for two_pass in (False, "stream")}
 
 
 @pytest.mark.parametrize("two_pass", [False, "stream"])
@@ -217,8 +229,62 @@ def test_port_stream_equals_fused(port_composites):
     assert np.abs(fused - stream).max() <= CORE_REL * np.abs(fused).max()
 
 
-def test_port_invert_then_composite_end_to_end(tmp_path):
+@pytest.fixture(scope="module")
+def int8_unet(tpipe):
+    """The tiny UNet quantized with enable_int8's "full" selection."""
+    unet = copy.deepcopy(tpipe.unet)
+    tq.quantize_unet_(unet, tq.default_unet_predicate)
+    return unet
+
+
+def test_int8_inversion_core_3_steps(goldens, tpipe, int8_unet):
+    tape = tt.ActivationTape(load_tape(goldens, "invert"))
+    with tape.active():
+        got = tcore.ddim_inversion_core(
+            int8_unet, tpipe.ddim, torch.from_numpy(goldens["invert/x0"]),
+            _cond(goldens, "invert"), goldens["invert/timesteps"], 50)
+    check_int8_replay(tape)
+    check_int8(got.numpy(), goldens["invert/int8_trajectory"], goldens["invert/trajectory"])
+
+
+def _stream_tape(records, n_steps, n_obj):
+    """JAX's fused composite runs one batch of N+3 branches per step; the
+    stream path runs the N+1 source branches one by one, then the
+    uncond/cond pair.  Every int8 activation is batch-major, so the fused
+    tape cut by branch is the stream path's tape."""
+    per_step = len(records) // n_steps
+    assert per_step * n_steps == len(records)
+    n = n_obj + 3
+    out = []
+    for i in range(n_steps):
+        step = records[i * per_step:(i + 1) * per_step]
+        for b in range(n_obj + 1):
+            out += batch_slice(step, n, b, b + 1)
+        out += batch_slice(step, n, n_obj + 1, n)
+    return out
+
+
+@pytest.mark.parametrize("two_pass", [False, "stream"])
+def test_int8_composite_core_3_steps(goldens, tpipe, int8_unet, two_pass):
+    """Both paths against JAX's fused int8 composite: at these sizes every
+    (3,1,1) conv has fewer than 4096 rows, so the capture passes (batch 1)
+    and the edit pass (batch 2) take the stacked GEMM as the fused batch of
+    5 does, and the per-row / per-sample activation scales do not depend on
+    the batch: the stream path quantizes what the fused path quantizes."""
+    records = load_tape(goldens, "composite")
+    if two_pass == "stream":
+        records = _stream_tape(records, N_STEPS - 1, N_OBJ)
+    tape = tt.ActivationTape(records)
+    with tape.active():
+        got = _composite(goldens, tpipe, int8_unet, two_pass)
+    check_int8_replay(tape)
+    check_int8(got, goldens["composite/int8_fused_out"], goldens["composite/fused_out"])
+
+
+def _invert_then_composite(tmp_path, int8: bool):
     pipe = tt.build_tiny_pipeline(device="cpu", natural=True)
+    if int8:
+        pipe.enable_int8(mode="full")
     dirs = []
     for j in range(N_OBJ + 1):
         d = str(tmp_path / f"inv{j}")
@@ -237,6 +303,14 @@ def test_port_invert_then_composite_end_to_end(tmp_path):
         num_frames=F, num_inference_steps=N_STEPS, guidance_scale=3.0, two_pass="stream")
     assert video.shape == (F, HW, HW, 3)
     assert np.isfinite(video).all() and video.min() >= 0.0 and video.max() <= 1.0
+
+
+def test_port_invert_then_composite_end_to_end(tmp_path):
+    _invert_then_composite(tmp_path, int8=False)
+
+
+def test_port_int8_invert_then_composite_end_to_end(tmp_path):
+    _invert_then_composite(tmp_path, int8=True)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -8,8 +8,15 @@ The JAX side (params, inputs, outputs) comes from
 tests/data/torch_parity_goldens.npz, written by
 scripts/torch_parity_goldens.py: compiling the tiny UNet's programs here
 would cost minutes of CPU that tier-1 cannot spare.  The stored param tree
-is held against the JAX module's shapes live."""
+is held against the JAX module's shapes live.
 
+The int8 forward (enable_int8's "full" selection) replays the JAX run's
+tape of int8 activations (mvoc_tpu_torch.utils.testing.ActivationTape):
+without it, the ~1e-7 float differences between the frameworks flip a
+few activations by one int8 step and the tiny network amplifies the
+flips to the size of the int8 noise itself."""
+
+import copy
 import dataclasses
 
 import numpy as np
@@ -25,7 +32,9 @@ from mvoc_tpu.models.unet_i2vgen import UNetConfig as JaxConfig
 from mvoc_tpu_torch import pnp as tp
 from mvoc_tpu_torch.models.convert import unet_state_dict_from_flax
 from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
-from torch_support import load_goldens, nest
+from mvoc_tpu_torch.ops import quantize as tq
+from mvoc_tpu_torch.utils.testing import ActivationTape
+from torch_support import check_int8, check_int8_replay, load_goldens, load_tape, nest
 from torch_support import yield_cpu  # noqa: F401  (autouse: low CPU priority)
 
 N_OBJ, F, LAT = 2, 2, 8
@@ -115,3 +124,14 @@ def test_stream_capture_then_consume(goldens, model):
         got = tu(*_args(goldens, "edit"),
                  pnp=dataclasses.replace(ts, mode="consume_pre", features=feats))
     _check(got.numpy(), goldens[f"unet/{layout}/stream_out"])
+
+
+def test_int8_forward_replaying_the_jax_tape(goldens, model):
+    layout, tu = model
+    qu = copy.deepcopy(tu)
+    tq.quantize_unet_(qu, tq.default_unet_predicate)
+    tape = ActivationTape(load_tape(goldens, f"unet_{layout}"))
+    with torch.no_grad(), tape.active():
+        got = qu(*_args(goldens, "plain"))
+    check_int8_replay(tape)
+    check_int8(got.numpy(), goldens[f"unet/{layout}/int8_out"], goldens[f"unet/{layout}/plain_out"])

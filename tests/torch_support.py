@@ -19,7 +19,7 @@ GOLDEN_SOURCES = (
     "mvoc_tpu/io/media.py", "mvoc_tpu/io/trajectory.py", "mvoc_tpu/models/clip.py",
     "mvoc_tpu/models/layers.py", "mvoc_tpu/models/unet_i2vgen.py", "mvoc_tpu/models/vae.py",
     "mvoc_tpu/ops/attention.py", "mvoc_tpu/ops/conv.py", "mvoc_tpu/ops/ddim.py",
-    "mvoc_tpu/ops/quantize.py", "mvoc_tpu/pipeline/core.py", "mvoc_tpu/pipeline/i2vgen.py",
+    "mvoc_tpu/ops/quantize.py", "mvoc_tpu/ops/s8gemm.py", "mvoc_tpu/pipeline/core.py", "mvoc_tpu/pipeline/i2vgen.py",
     "mvoc_tpu/pnp.py", "mvoc_tpu/utils/testing.py", "scripts/torch_parity_goldens.py",
 )
 REGENERATE = "JAX_PLATFORMS=cpu python scripts/torch_parity_goldens.py"
@@ -47,6 +47,71 @@ def load_goldens() -> dict[str, np.ndarray]:
                     f"than these ({', '.join(GOLDEN_SOURCES)}): regenerate goldens with "
                     f"`{REGENERATE}`")
     return goldens
+
+
+# int8 runs replaying the JAX tape: max error <= INT8_REL * max|JAX int8
+# output|, which must stay under INT8_SHARE of the JAX int8-vs-fp32
+# distance; the port's own quantization of each taped activation at most
+# one int8 step from JAX's on at most FLIP_SHARE of the elements, its scales
+# within SCALE_REL
+INT8_REL = 1e-5
+INT8_SHARE = 0.1
+FLIP_SHARE = 1e-5
+SCALE_REL = 1e-5
+
+
+def check_int8_replay(tape) -> None:
+    """Every taped quantization consumed, the port's own ones close to JAX's."""
+    print(f"tape: {tape.calls} calls, {tape.flips} of {tape.elements} elements one step "
+          f"apart, max scale rel diff {tape.max_scale_rel:.3g}")
+    assert tape.calls == len(tape.records) > 0
+    assert tape.max_step <= 1 and tape.flips <= FLIP_SHARE * tape.elements
+    assert tape.max_scale_rel <= SCALE_REL
+
+
+def check_int8(got, want, fp32, rel: float = INT8_REL) -> None:
+    """The port's int8 output against JAX's, with a tolerance that must stay
+    under INT8_SHARE of how far int8 moves JAX's own output from fp32."""
+    got, want, fp32 = (np.asarray(a) for a in (got, want, fp32))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    drift = np.abs(want - fp32).max()
+    print(f"int8: max |err| {err:.3g} of max |jax| {scale:.3g}; jax int8 vs fp32 {drift:.3g}")
+    assert err <= rel * scale, (err, scale)
+    assert rel * scale <= INT8_SHARE * drift, (rel * scale, drift)
+
+
+def load_tape(goldens: dict, case: str) -> list:
+    """The JAX run's activation quantizations, [(int8 q, fp32 scale)] in call
+    order (scripts/torch_parity_goldens.py: Tape.store)."""
+    out = []
+    pos = {"q": 0, "s": 0}
+    for q_shape, s_shape in zip(goldens[f"int8/tape/{case}/q_shapes"],
+                                goldens[f"int8/tape/{case}/s_shapes"]):
+        pair = []
+        for key, shape in (("q", q_shape), ("s", s_shape)):
+            shape = tuple(int(d) for d in shape if d >= 0)
+            n = int(np.prod(shape))
+            flat = goldens[f"int8/tape/{case}/{key}"]
+            pair.append(flat[pos[key]:pos[key] + n].reshape(shape))
+            pos[key] += n
+        out.append(tuple(pair))
+    return out
+
+
+def batch_slice(records: list, batch: int, lo: int, hi: int) -> list:
+    """The records of a run at batch `batch` cut to its batch entries
+    [lo, hi): every quantized activation of the UNet is batch-major (its
+    leading axis is batch x something), and so are its scales."""
+    out = []
+    for pair in records:
+        cut = []
+        for a in pair:
+            assert a.shape[0] % batch == 0, a.shape
+            per = a.shape[0] // batch
+            cut.append(a[lo * per:hi * per])
+        out.append(tuple(cut))
+    return out
 
 
 def nest(flat: dict, prefix: str) -> dict:
