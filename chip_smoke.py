@@ -36,7 +36,10 @@ Phases, in order (each failure ends the run with a non-zero exit):
      bitwise against its plain version.  Each with its time, the plain
      version's time, the time of one PyTorch library call of the same
      function (a yardstick the port never calls), and the least time the
-     card could take.
+     card could take.  K1 also with its rate, its share of that bound, its
+     ratio to the library call, and the time and error of its PR 1 design
+     (the SIMT kernel, still built for fp32) on the same inputs; after the
+     build, the HGMMA / HMMA count of each K1 kernel's SASS (cuobjdump).
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The per-shape table also goes to
 chiprun_out/chip_smoke_phases.json.
@@ -76,6 +79,7 @@ TOL_INT8_SHARE = 0.1
 TOL_FLIP_SHARE = 1e-5
 # K3 vs its plain version: integer sums are exact, the epilogue is the same
 TOL_S8 = 0.0
+FLASH_REPS = 20  # timed launches of K1 and of its library call at every shape
 
 KERNELS = {
     "flash_attention": dict(source="mvoc_tpu_torch/csrc/flash_attention.cu",
@@ -286,19 +290,51 @@ def flash_phase(sig, gen):
     q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
                .transpose(1, 2) for s in (sq, sk, sk))
     out = A.flash_attention(q, k, v)
+    old = A._flash_cuda(q, k, v, "simt")  # the PR 1 design, kept for this comparison
     # plain version in fp32 from the same bf16 inputs, batch-chunked to keep
     # its [Sq, Sk] logits under ~4 GB
     chunk = max(1, int(4e9 // (h * sq * sk * 4)))
     ref = _chunked(A.flash_attention_plain, b, chunk, q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
+    old_err = (old.float() - ref).abs().max().item()
     tol = TOL_BF16 * ref.abs().max().item()
-    ms = cuda_ms(lambda: A.flash_attention(q, k, v))
+    # 20 launches a reading: 5 moved by up to 28% between runs (PERF.md, PR 2)
+    ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=FLASH_REPS)
+    old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt"), reps=3)
     plain_ms = cuda_ms(lambda: _chunked(A.flash_attention_plain, b, chunk, q, k, v), reps=1)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=FLASH_REPS)
     flops = 4.0 * b * h * sq * sk * d
     nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
-    return dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                bytes=nbytes, peak=PEAK_BF16_FLOPS)
+    return dict(err=err, old_err=old_err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS, old_ms=old_ms,
+                design=A.flash_variant(q.dtype, d))
+
+
+def flash_sass_counts() -> dict:
+    """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each K1
+    kernel's SASS, from cuobjdump -sass of the built library; {} when the
+    toolkit has no cuobjdump."""
+    from mvoc_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return {}
+    out = subprocess.run([tool, "-sass", _build.library_path("flash_attention")],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    return counts
 
 
 def frame_phase(sig, gen):
@@ -439,8 +475,26 @@ def main() -> int:
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {stem}: {len(regs)} kernel instantiations, registers <= {max(regs)}, "
             f"spill stores <= {max(spills)} bytes")
+        if stem == "flash_attention":  # K1 per kernel; its shared memory is dynamic
+            for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)Compile time",
+                                       text, re.S):
+                n_regs = re.search(r"Used (\d+) registers", body).group(1)
+                n_spill = re.search(r"(\d+) bytes spill stores", body).group(1)
+                log(f"    {fn}: {n_regs} registers, {n_spill} bytes spill stores")
+            for line in text.splitlines():
+                if "C7515" in line or "serialized" in line:
+                    log(f"    {line.strip()}")
     for meta in KERNELS.values():
         _build.load(os.path.splitext(os.path.basename(meta["source"]))[0])
+    # K1 on the tensor cores: count HGMMA / HMMA in each K1 kernel's SASS
+    sass = flash_sass_counts()
+    if not sass:
+        log("K1 SASS tensor-core instructions: not measured (no cuobjdump)")
+    for fn, c in sorted(sass.items()):
+        log(f"K1 SASS {fn}: HGMMA {c['HGMMA']} HMMA {c['HMMA']}")
+    if sass and not any(c["HGMMA"] + c["HMMA"] for fn, c in sass.items()
+                        if "flash_wgmma_d64" in fn):
+        raise RuntimeError("the bf16 D=64 K1 kernel has no tensor-core instruction in its SASS")
 
     # 2. the bf16 slice at full width
     rng = np.random.default_rng(args.seed)
@@ -600,15 +654,26 @@ def main() -> int:
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
+            extra = ""
+            if name == "flash_attention":  # rate, roofline share, library ratio, old design
+                row.update(design=ph["design"], tf_s=ph["flops"] / ph["ms"] / 1e9,
+                           bound_share=b_ms / ph["ms"], vs_library=ph["ms"] / ph["library_ms"],
+                           old_ms=ph["old_ms"], old_err=ph["old_err"])
+                extra = (f" [{ph['design']}: {row['tf_s']:.1f} TF/s, {100 * row['bound_share']:.1f}% "
+                         f"of the bound, {row['vs_library']:.2f}x the library call; PR 1 SIMT "
+                         f"design {ph['old_ms']:.4f} ms, err {ph['old_err']:.3g}]")
             table.append(row)
             peak_txt = "989 TF/s" if ph["peak"] == PEAK_BF16_FLOPS else "1979 TOP/s int8"
             log(f"phase {name} {sig}: max_abs_err {ph['err']:.3g} (tol {ph['tol']:.3g}) "
                 f"kernel_ms {ph['ms']:.4f} plain_ms {ph['plain_ms']:.4f} "
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
-                f"main-path launches {row['launches']}")
+                f"main-path launches {row['launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
+            if not ph.get("old_err", 0.0) <= ph["tol"]:
+                raise RuntimeError(f"{name} {sig}: old design's error {ph['old_err']} over "
+                                   f"{ph['tol']}")
             torch.cuda.empty_cache()
 
     # each kernel's device time in one composite step of the path that ran
@@ -623,16 +688,18 @@ def main() -> int:
                 n * ms_of[sig] for sig, n in path["comp_shapes"][kname].items()
                 if n and sig in ms_of) / max(
                 path["steps"], 1)
+        wall_ms = 1e3 * sum(path["step_s"]) / max(path["steps"], 1)
         log(f"{name}: kernel device time per composite step (launches x phase kernel_ms): "
             f"{ {k: round(v, 2) for k, v in per_step_ms[name].items()} } ms of "
-            f"{1e3 * sum(path['step_s']) / max(path['steps'], 1):.1f} ms wall")
+            f"{wall_ms:.1f} ms wall (shares: "
+            f"{ {k: round(v / wall_ms, 4) for k, v in per_step_ms[name].items()} })")
 
     os.makedirs("chiprun_out", exist_ok=True)
     summary = {tag: {k: v for k, v in path.items() if k not in ("final", "root", "stores",
                                                                 "shapes", "comp_shapes")}
                for tag, path in (("bf16", bf16), ("int8_mixed", int8))}
     with open(os.path.join("chiprun_out", "chip_smoke_phases.json"), "w") as f:
-        json.dump(dict(card=card, paths=summary, int8_full_step=dict(
+        json.dump(dict(card=card, flash_sass=sass, paths=summary, int8_full_step=dict(
             s=full_secs, launches=full_launch, peak_gib=full_peak),
             kernel_ms_per_step=per_step_ms, reference=dict(
                 fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),

@@ -68,6 +68,11 @@ def _lib_path(src: str) -> str:
     return os.path.join(build_dir(), f"lib{stem}-{_digest(src)}.so")
 
 
+def library_path(stem: str) -> str:
+    """Where the library built from csrc/<stem>.cu lives (built or not)."""
+    return _lib_path(os.path.join(CSRC_DIR, f"{stem}.cu"))
+
+
 def build_all() -> Dict[str, float]:
     """Compile every source whose library is missing, all nvcc processes
     started together.  Returns {source stem: seconds} of what was built."""
@@ -110,7 +115,7 @@ def load(stem: str) -> ctypes.CDLL:
         src = os.path.join(CSRC_DIR, f"{stem}.cu")
         if not os.path.exists(src):
             raise FileNotFoundError(src)
-        path = _lib_path(src)
+        path = library_path(stem)
         if not os.path.exists(path):
             build_all()
         lib = ctypes.CDLL(path)

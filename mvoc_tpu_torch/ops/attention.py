@@ -84,17 +84,54 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return out.to(q.dtype)
 
 
-def _flash_cuda(q, k, v) -> torch.Tensor:
+# K1's designs on the card (csrc/flash_attention.cu), by the code its C entry
+# takes.  The wrapper picks one from (dtype, head dim) alone; "simt" on bf16
+# serves side-by-side timing only (chip_smoke.py).
+FLASH_VARIANTS = {"simt": 0, "wgmma": 1}
+_TC_ALIGN = 16  # bytes: the wgmma variant copies rows in 16-byte pieces
+
+
+def flash_variant(dtype: torch.dtype, d: int) -> str:
+    """The K1 design a (dtype, head dim) takes on the card, the same every
+    time: bf16 runs on the tensor cores (wgmma, D = 64 and 512); fp32 keeps
+    the SIMT kernel's exact fp32 FMAs (tensor cores would take it to TF32)."""
+    _require(dtype in _DTYPE_CODE, f"flash_attention: dtype {dtype} not supported on CUDA")
+    _require(d in FLASH_HEAD_DIMS, f"flash_attention: head dim {d} not in {FLASH_HEAD_DIMS}")
+    return "simt" if dtype == torch.float32 else "wgmma"
+
+
+def flash_layout_error(name: str, shape, strides, ptr: int, itemsize: int) -> Optional[str]:
+    """Why the wgmma variant cannot copy a [B, H, S, D] operand with
+    these element strides from this address, or None.  Every row it copies
+    must start on a 16-byte boundary: the pointer, and each (batch, head,
+    seq) stride of an axis longer than 1, times the item size."""
+    if ptr % _TC_ALIGN:
+        return f"flash_attention: {name} data pointer {ptr:#x} is not {_TC_ALIGN}-byte aligned"
+    for axis, n, st in zip(("batch", "head", "seq"), shape[:3], strides[:3]):
+        if n > 1 and (st * itemsize) % _TC_ALIGN:
+            return (f"flash_attention: {name} {axis} stride {st} is not a multiple of "
+                    f"{_TC_ALIGN // itemsize} elements")
+    return None
+
+
+def _flash_cuda(q, k, v, variant: Optional[str] = None) -> torch.Tensor:
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    _require(q.dtype in _DTYPE_CODE, f"flash_attention: dtype {q.dtype} not supported on CUDA")
+    default = flash_variant(q.dtype, d)  # also refuses an unsupported dtype or head dim
+    variant = variant or default
+    _require(variant in FLASH_VARIANTS, f"flash_attention: unknown variant {variant!r}")
+    _require(variant == "simt" or q.dtype == torch.bfloat16,
+             f"flash_attention: variant {variant} takes bf16, not {q.dtype}")
     _require(k.dtype == q.dtype and v.dtype == q.dtype, "flash_attention: q/k/v dtypes differ")
-    _require(d in FLASH_HEAD_DIMS, f"flash_attention: head dim {d} not in {FLASH_HEAD_DIMS}")
     _require(k.shape == (b, h, sk, d) and v.shape == (b, h, sk, d),
              f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} vs q {tuple(q.shape)}")
     _require(q.device == k.device == v.device, "flash_attention: tensors on different devices")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(t.stride(-1) == 1, f"flash_attention: {name} head dim must be contiguous")
+        problem = None if variant == "simt" else flash_layout_error(
+            name, t.shape, t.stride(), t.data_ptr(), t.element_size())
+        if problem:
+            raise ValueError(problem)
     # same [B, S, H, D] storage as the projections, viewed as [B, H, S, D]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
@@ -102,12 +139,11 @@ def _flash_cuda(q, k, v) -> torch.Tensor:
     lib = _build.load("flash_attention")
     fn = lib.mvoc_flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPE_CODE[q.dtype], b, h, sq, sk, d, strides,
-             1.0 / math.sqrt(d), _stream_ptr(q))
-    _build.check(lib, err, "flash_attention launch")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), FLASH_VARIANTS[variant],
+             _DTYPE_CODE[q.dtype], b, h, sq, sk, d, strides, 1.0 / math.sqrt(d), _stream_ptr(q))
+    _build.check(lib, err, f"flash_attention launch ({variant})")
     LAUNCHES["flash_attention"] += 1
     LAUNCH_SHAPES["flash_attention"][(b, h, sq, sk, d, str(q.dtype))] += 1
     return out

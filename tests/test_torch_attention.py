@@ -60,3 +60,42 @@ def test_wrappers_count_no_launch_on_cpu():
     y = torch.randn(1, 4, 9, 16)
     tattn.frame_attention(y, y, y, heads=2)
     assert tattn.LAUNCHES == {"flash_attention": 0, "frame_attention": 0}
+
+
+@pytest.mark.parametrize("dtype,d,want", [(torch.bfloat16, 64, "wgmma"),
+                                          (torch.bfloat16, 512, "wgmma"),
+                                          (torch.float32, 64, "simt"),
+                                          (torch.float32, 512, "simt")])
+def test_flash_variant_follows_dtype_and_head_dim(dtype, d, want):
+    """K1's design on the card is a function of (dtype, head dim) alone:
+    bf16 on the tensor cores, fp32 on the exact-fp32 SIMT kernel."""
+    assert tattn.flash_variant(dtype, d) == want
+    assert want in tattn.FLASH_VARIANTS
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 128)])
+def test_flash_variant_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="dtype|head dim"):
+        tattn.flash_variant(dtype, d)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,itemsize,problem", [
+    # the main path: [B, S, H, D] projections viewed as [B, H, S, D]
+    ((16, 5, 4096, 64), (4096 * 320, 64, 320, 1), 0x7f0000000000, 2, None),
+    # k / v halves of one [B, S, 2, H, D] projection: v starts H*D elements in
+    ((2, 5, 145, 64), (145 * 640, 64, 640, 1), 0x7f0000000000 + 2 * 320, 2, None),
+    ((1, 1, 145, 64), (145 * 325, 325, 325, 1), 0x7f0000000000, 2, "seq stride 325"),
+    ((2, 5, 145, 64), (145 * 320, 64, 320, 1), 0x7f0000000002, 2, "not 16-byte aligned"),
+    ((2, 1, 10, 64), (644, 644, 64, 1), 0x7f0000000000, 2, "batch stride 644"),
+    ((1, 1, 10, 64), (644, 644, 64, 1), 0x7f0000000000, 2, None),  # size-1 axes never step
+    ((1, 2, 1, 512), (1036, 518, 512, 1), 0x7f0000000000, 2, "head stride 518"),
+    ((2, 3, 7, 64), (21 * 68, 7 * 68, 68, 1), 0x7f0000000000, 4, None),  # fp32: 4 elements
+])
+def test_flash_layout_error_is_a_pure_check(shape, strides, ptr, itemsize, problem):
+    """The wgmma variant's layout condition, computed without a card: every
+    row it copies in 16-byte pieces starts on a 16-byte boundary."""
+    got = tattn.flash_layout_error("q", shape, strides, ptr, itemsize)
+    if problem is None:
+        assert got is None
+    else:
+        assert got is not None and problem in got

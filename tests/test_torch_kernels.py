@@ -65,6 +65,100 @@ def test_frame_kernel_matches_plain(cuda_device, dtype, layout, heads, f, d, win
     assert (got - want).abs().max().item() <= tol
 
 
+EDGES = (1, 63, 64, 65, 127, 145, 4095)
+
+
+def _bf16_qkv(device, b, h, sq, sk, d, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(b, h, s, d, generator=g, device=device).bfloat16()
+                 for s in (sq, sk, sk))
+
+
+def _check_bf16(got, q, k, v):
+    want = tattn.flash_attention_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want).abs().max().item() <= BF16_REL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("sk", EDGES)
+@pytest.mark.parametrize("sq", EDGES)
+def test_flash_bf16_variants_at_tile_edges(cuda_device, variant, sq, sk):
+    """Both bf16 designs of K1 (D = 64: wgmma, and the SIMT kernel kept for
+    timing) against the plain version in fp32 at ragged query and key
+    lengths around the tiles (64 / 128 rows, 64 keys), Sk = 1 and 63 inside
+    one key tile."""
+    q, k, v = _bf16_qkv(cuda_device, 1, 2, sq, sk, 64)
+    got = tattn._flash_cuda(q, k, v, variant)
+    torch.cuda.synchronize()
+    _check_bf16(got, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("b,sq,sk", [(1, 1, 1), (2, 65, 145), (1, 300, 33), (1, 4095, 300)])
+def test_flash_bf16_d512_ragged(cuda_device, variant, b, sq, sk):
+    """D = 512 (the VAE's single head) at ragged lengths: 64-row query and
+    32-key tiles, q scaled and rounded before the product."""
+    q, k, v = _bf16_qkv(cuda_device, b, 1, sq, sk, 512)
+    got = tattn._flash_cuda(q, k, v, variant)
+    torch.cuda.synchronize()
+    _check_bf16(got, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [145, 4096])
+def test_flash_bf16_reads_strided_projections(cuda_device, sk):
+    """The main path's layout: q a [B, S, H, D] projection and k / v the two
+    halves of one [B, S, 2, H, D] projection, all viewed as [B, H, S, D]
+    (seq stride H*D or 2*H*D, v's base H*D elements in)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    b, h, sq, d = 2, 5, 1000, 64
+    q = torch.randn(b, sq, h, d, generator=g, device=cuda_device).bfloat16().transpose(1, 2)
+    kv = torch.randn(b, sk, 2, h, d, generator=g, device=cuda_device).bfloat16()
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _check_bf16(got, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+def test_flash_bf16_large_logits_rescale(cuda_device, variant):
+    """q x 30: logits of magnitude ~30, so the running max moves from key
+    tile to key tile and the accumulator is rescaled on the way."""
+    q, k, v = _bf16_qkv(cuda_device, 2, 3, 777, 1500, 64, seed=2)
+    q = (q.float() * 30).bfloat16()
+    got = tattn._flash_cuda(q, k, v, variant)
+    torch.cuda.synchronize()
+    _check_bf16(got, q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_path_refuses_misaligned_layouts(cuda_device):
+    """A seq stride that is not a multiple of 8 elements, or a pointer off
+    a 16-byte boundary, raises before any launch; fp32 (SIMT) takes both."""
+    base = torch.zeros(1, 2, 100, 72, device=cuda_device, dtype=torch.bfloat16)
+    padded = base[..., :64]  # seq stride 72: a multiple of 8, taken
+    tattn.flash_attention(padded, padded, padded)
+    wide = torch.zeros(1, 2, 100, 68, device=cuda_device, dtype=torch.bfloat16)[..., :64]
+    shifted = torch.zeros(1 * 2 * 100 * 64 + 1, device=cuda_device,
+                          dtype=torch.bfloat16)[1:].view(1, 2, 100, 64)
+    before = tattn.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="seq stride 68"):
+        tattn.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        tattn.flash_attention(shifted, padded, padded)
+    assert tattn.LAUNCHES["flash_attention"] == before
+    wide32 = torch.ones(1, 2, 100, 67, device=cuda_device)[..., :64]  # 268-byte rows
+    shifted32 = torch.ones(2 * 100 * 64 + 1, device=cuda_device)[1:].view(1, 2, 100, 64)
+    got = tattn.flash_attention(wide32, wide32, shifted32)
+    assert tattn.LAUNCHES["flash_attention"] == before + 1
+    assert torch.equal(got, torch.ones_like(got))
+
+
 def test_bf16_tolerance_catches_a_dropped_key_tile():
     """At Sk = 14400 the plain version's own bf16 roundings stay inside the
     bound and an attention that drops one 64-key tile does not."""
