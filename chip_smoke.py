@@ -29,17 +29,28 @@ Phases, in order (each failure ends the run with a non-zero exit):
   6. one stream composite step with enable_int8(mode="full") on the same
      seeded weights (a fresh pipeline), so that the im2col convolutions
      reach the card;
+     (after phase 3 and after phase 5, one steady stream composite step of
+     the bf16 and of the int8-mixed path runs again under torch.profiler:
+     its wall time with and without the profiler, the device's busy time
+     and idle share, and device time by kernel group);
   7. kernel phases: K1 and K2 at every distinct shape the bf16 slice
      launched, plus a ragged 14400-token K1 case, each against its plain
      version computed in fp32 from the same bf16 inputs; K3 at every
      (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
-     bitwise against its plain version.  Each with its time, the plain
-     version's time, the time of one PyTorch library call of the same
-     function (a yardstick the port never calls), and the least time the
-     card could take.  K1 also with its rate, its share of that bound, its
-     ratio to the library call, and the time and error of its PR 1 design
-     (the SIMT kernel, still built for fp32) on the same inputs; after the
-     build, the HGMMA / HMMA count of each K1 kernel's SASS (cuobjdump).
+     bitwise against its plain version.  Each with its device time
+     (kernel_ms: TIMED_REPS launches captured in one CUDA graph and
+     replayed, so host time between launches does not count; call_ms: the
+     same launches back to back from Python, CUDA events around them), the
+     plain version's time, the device time of one PyTorch library call of
+     the same function (a yardstick the port never calls), and the least
+     time the card could take; the design it launched (K1: wgmma or SIMT;
+     K2: mma or SIMT; K3: wgmma or mma), its rate, its share of that
+     bound, its ratio to the library call, and the device time and error
+     of its old design on the same inputs (K1, K2: PR 1's SIMT kernels; K3:
+     PR 2's mma.sync kernel); after the build, per-kernel registers
+     (-Xptxas -v) and the HGMMA / IGMMA / HMMA / IMMA counts in each
+     kernel's SASS (cuobjdump); K3's host cost per launch.  Last, the bf16
+     and int8-mixed composite steps with K1's, K2's and K3's shares.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The per-shape table also goes to
 chiprun_out/chip_smoke_phases.json.
@@ -79,7 +90,10 @@ TOL_INT8_SHARE = 0.1
 TOL_FLIP_SHARE = 1e-5
 # K3 vs its plain version: integer sums are exact, the epilogue is the same
 TOL_S8 = 0.0
-FLASH_REPS = 20  # timed launches of K1 and of its library call at every shape
+# timed launches of every kernel and of its library call at every shape
+# (5 moved by up to 28% between runs: PERF.md, PR 2)
+TIMED_REPS = 20
+HOST_CALLS = 200  # K3 wrapper calls timed on the host clock, back to back
 
 KERNELS = {
     "flash_attention": dict(source="mvoc_tpu_torch/csrc/flash_attention.cu",
@@ -89,6 +103,18 @@ KERNELS = {
     "s8_matmul": dict(source="mvoc_tpu_torch/csrc/s8_gemm.cu",
                       replaces="mvoc_tpu/ops/s8gemm.py:101"),
 }
+# (library stem, kernel name fragment, SASS op) that must be there: the
+# tensor-core designs really run on the tensor cores
+# each kernel's rate (K1, K3 operations; K2, bound by HBM, bytes) and the
+# design its old-design rows time
+RATE = {"flash_attention": lambda ph: (ph["flops"] / ph["ms"] / 1e9, "TF/s"),
+        "frame_attention": lambda ph: (ph["bytes"] / ph["ms"] / 1e6, "GB/s"),
+        "s8_matmul": lambda ph: (ph["flops"] / ph["ms"] / 1e9, "TOP/s")}
+OLD_DESIGN = {"flash_attention": "PR 1 SIMT", "frame_attention": "PR 1 SIMT",
+              "s8_matmul": "PR 2 mma.sync"}
+SASS_REQUIRED = (("flash_attention", "flash_wgmma_d64", "HGMMA"),
+                 ("frame_attention", "frame_mma_kernel", "HMMA"),
+                 ("s8_gemm", "s8_wgmma_kernel", "IGMMA"))  # int8 wgmma
 PROMPT = "a red boat and a surfer on the sea"
 
 
@@ -125,6 +151,32 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call of fn: `reps` calls captured in one CUDA graph
+    and replayed, so the host's time between launches (the wrappers'
+    Python, argument checks and, for K3, the tensor maps' encoding) does not
+    count.  fn has run before (warm-up, and every kernel already built)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -170,6 +222,14 @@ def read_counts():
         launches.update(mod.LAUNCHES)
         shapes.update({k: dict(v) for k, v in mod.LAUNCH_SHAPES.items()})
     return launches, shapes
+
+
+def read_variants() -> dict:
+    """{kernel: {design: launches}} of all kernels."""
+    out = {}
+    for mod in _counter_modules():
+        out.update({k: dict(v) for k, v in mod.LAUNCH_VARIANTS.items()})
+    return out
 
 
 def _minus(after, before):
@@ -233,6 +293,7 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
     video, dec_secs = sync_time(lambda: pipe.decode_latents(final, decode_chunk_size=1))
     main_secs = time.perf_counter() - t_main
     launches, shapes = read_counts()
+    variants = read_variants()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not (torch.isfinite(final).all() and np.isfinite(video).all()):
         raise RuntimeError(f"{tag}: composite or decode gave non-finite values")
@@ -242,8 +303,10 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
         f"s/step {[round(t, 3) for t in step_times]}; decode {dec_secs:.2f} s; "
         f"main path {main_secs:.1f} s; peak memory {peak:.2f} GiB")
     log(f"{tag} launches on the main path: {launches}; in the inversions: {inv_launch}; "
-        f"per composite step: { {k: v / max(n_comp, 1) for k, v in comp_launch.items()} }")
+        f"per composite step: { {k: v / max(n_comp, 1) for k, v in comp_launch.items()} }; "
+        f"per design on the main path: {variants}")
     return dict(final=final, root=tmp, stores=stores, launches=launches, shapes=shapes,
+                variants=variants,
                 inv_launch=inv_launch, comp_launch=comp_launch, comp_shapes=comp_shapes,
                 steps=n_comp, step_s=step_times, inv_s=inv_secs, decode_s=dec_secs,
                 main_s=main_secs, peak_gib=peak)
@@ -265,6 +328,65 @@ def one_step_inputs(pipe, videos, masks, stores, steps: int, seed: int, two_pass
     return init, cond, one, ms, pb, ps, cw
 
 
+# kernel-name fragments -> the group a steady step's device time is booked
+# under (first match wins; lower-cased names)
+KERNEL_GROUPS = (("flash_", "K1 flash attention"), ("frame_", "K2 frame attention"),
+                 ("s8_", "K3 s8 GEMM"), ("conv", "convolution"), ("fprop", "convolution"),
+                 ("implicit", "convolution"), ("gemm", "GEMM"), ("cutlass", "GEMM"),
+                 ("cublas", "GEMM"), ("nvjet", "GEMM"), ("norm", "normalisation"),
+                 ("reduce", "reductions"),
+                 ("copy", "copies and layout"), ("cat", "copies and layout"),
+                 ("elementwise", "elementwise"), ("vectorized", "elementwise"))
+
+
+def profile_step(run, tag: str) -> dict:
+    """One composite step (`run`, warmed up first) under torch.profiler:
+    its wall time, the device's busy time (the union of the kernels'
+    intervals) and idle share, and the device time by kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_time(run)
+    _, wall_s = sync_time(run)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s = sync_time(run)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"{tag} profile: no device events (CUPTI gave none): not measured")
+        return dict(wall_s=wall_s, device_busy_ms=None)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    groups, names = {}, {}
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        group = next((g for frag, g in KERNEL_GROUPS if frag in low), "other")
+        groups[group] = groups.get(group, 0.0) + dur
+        names[e.name] = names.get(e.name, 0.0) + dur
+    out = dict(wall_s=wall_s, profiled_wall_s=prof_s, device_busy_ms=busy / 1e3,
+               kernel_window_ms=window / 1e3,
+               # the profiler slows the host, not the kernels: idle share of
+               # the unprofiled step
+               idle_share=max(0.0, 1.0 - busy / (1e6 * wall_s)),
+               launches=len(kernels),
+               groups_ms={g: v / 1e3 for g, v in sorted(groups.items(), key=lambda x: -x[1])},
+               top_kernels_ms={n[:120]: v / 1e3 for n, v in
+                               sorted(names.items(), key=lambda x: -x[1])[:12]})
+    log(f"{tag} profile of one steady composite step: wall {1e3 * wall_s:.1f} ms unprofiled, "
+        f"{1e3 * prof_s:.1f} ms profiled; device busy {out['device_busy_ms']:.1f} ms over "
+        f"{out['launches']} kernel launches, idle share {out['idle_share']:.3f}; device ms by "
+        f"group: { {g: round(v, 2) for g, v in out['groups_ms'].items()} }")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
@@ -278,6 +400,15 @@ def _chunked(fn, n: int, chunk: int, *args):
     return torch.cat([fn(*(a[i:i + chunk] for a in args)) for i in range(0, n, chunk)])
 
 
+def launched_variant(mod, name: str, fn):
+    """fn's result and the design(s) its launches of kernel `name` took, as
+    counted by the wrapper."""
+    before = dict(mod.LAUNCH_VARIANTS[name])
+    out = fn()
+    took = sorted(v for v, n in mod.LAUNCH_VARIANTS[name].items() if n > before.get(v, 0))
+    return out, "+".join(took)
+
+
 def flash_phase(sig, gen):
     import torch
     import torch.nn.functional as F
@@ -289,7 +420,7 @@ def flash_phase(sig, gen):
     # the main path's layout: [B, S, H, D] projections viewed as [B, H, S, D]
     q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
                .transpose(1, 2) for s in (sq, sk, sk))
-    out = A.flash_attention(q, k, v)
+    out, design = launched_variant(A, "flash_attention", lambda: A.flash_attention(q, k, v))
     old = A._flash_cuda(q, k, v, "simt")  # the PR 1 design, kept for this comparison
     # plain version in fp32 from the same bf16 inputs, batch-chunked to keep
     # its [Sq, Sk] logits under ~4 GB
@@ -298,22 +429,24 @@ def flash_phase(sig, gen):
     err = (out.float() - ref).abs().max().item()
     old_err = (old.float() - ref).abs().max().item()
     tol = TOL_BF16 * ref.abs().max().item()
-    # 20 launches a reading: 5 moved by up to 28% between runs (PERF.md, PR 2)
-    ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=FLASH_REPS)
+    call_ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
+    ms = graph_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
     old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt"), reps=3)
     plain_ms = cuda_ms(lambda: _chunked(A.flash_attention_plain, b, chunk, q, k, v), reps=1)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=FLASH_REPS)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=TIMED_REPS)
     flops = 4.0 * b * h * sq * sk * d
     nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
-    return dict(err=err, old_err=old_err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS, old_ms=old_ms,
-                design=A.flash_variant(q.dtype, d))
+    return dict(err=err, old_err=old_err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS,
+                old_ms=old_ms, design=design)
 
 
-def flash_sass_counts() -> dict:
-    """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each K1
-    kernel's SASS, from cuobjdump -sass of the built library; {} when the
-    toolkit has no cuobjdump."""
+def sass_counts(stem: str) -> dict:
+    """Tensor-core instructions (HGMMA / IGMMA: wgmma with fp / integer
+    inputs, HMMA / IMMA: mma.sync with fp / integer inputs) in each kernel's
+    SASS of the library
+    built from csrc/<stem>.cu, from cuobjdump -sass; {} when the toolkit has
+    no cuobjdump."""
     from mvoc_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -321,7 +454,7 @@ def flash_sass_counts() -> dict:
         tool = shutil.which("cuobjdump")
         if tool is None:
             return {}
-    out = subprocess.run([tool, "-sass", _build.library_path("flash_attention")],
+    out = subprocess.run([tool, "-sass", _build.library_path(stem)],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
@@ -330,7 +463,7 @@ def flash_sass_counts() -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = {"HGMMA": 0, "IGMMA": 0, "HMMA": 0, "IMMA": 0}
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
@@ -352,12 +485,19 @@ def frame_phase(sig, gen):
     if masked:
         idx = torch.arange(f, device=dev)
         mask = (idx[:, None] - idx[None, :]).abs() <= 4
-    out = A.frame_attention(q, k, v, heads, mask=mask, layout=layout)
+    out, design = launched_variant(A, "frame_attention", lambda: A.frame_attention(
+        q, k, v, heads, mask=mask, layout=layout))
+    old = A._frame_cuda(q, k, v, heads, mask, layout, "simt")  # the PR 1 design
     ref = A.frame_attention_plain(q.float(), k.float(), v.float(), heads, mask=mask,
                                   layout=layout)
     err = (out.float() - ref).abs().max().item()
+    old_err = (old.float() - ref).abs().max().item()
     tol = TOL_BF16 * ref.abs().max().item()
-    ms = cuda_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout))
+    call_ms = cuda_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
+                      reps=TIMED_REPS)
+    ms = graph_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
+                  reps=TIMED_REPS)
+    old_ms = graph_ms(lambda: A._frame_cuda(q, k, v, heads, mask, layout, "simt"), reps=5)
     plain_ms = cuda_ms(lambda: A.frame_attention_plain(q, k, v, heads, mask=mask,
                                                        layout=layout), reps=2)
 
@@ -367,12 +507,14 @@ def frame_phase(sig, gen):
             -1, heads, f, d).contiguous()
 
     qr, kr, vr = relaid(q), relaid(k), relaid(v)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask))
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask),
+                      reps=TIMED_REPS)
     n = b * s * heads
     flops = 4.0 * n * f * f * d
     nbytes = 4.0 * n * f * d * 2
-    return dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                bytes=nbytes, peak=PEAK_BF16_FLOPS)
+    return dict(err=err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS, old_ms=old_ms,
+                old_err=old_err, design=design)
 
 
 def s8_phase(sig, gen):
@@ -388,7 +530,9 @@ def s8_phase(sig, gen):
     wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t()
     sx = torch.rand(m, generator=gen, device=dev) * 0.1 + 1e-3
     sw = torch.rand(n, generator=gen, device=dev) * 0.1 + 1e-3
-    out = S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+    out, design = launched_variant(S8, "s8_matmul", lambda: S8.s8_matmul(
+        xq, wq, sx, sw, out_dtype=out_dtype))
+    old = S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma")  # the PR 2 design
     # plain version (exact float64 product), row-chunked to keep its float64
     # copy of x under ~2 GB
     chunk = max(1, int(2e9 // (8 * k)))
@@ -398,9 +542,13 @@ def s8_phase(sig, gen):
                         m, chunk, xq, sx)
 
     ref = plain()
-    exact = torch.equal(out, ref)
+    exact = torch.equal(out, ref) and torch.equal(old, ref)
     err = (out.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype))
+    old_err = (old.float() - ref.float()).abs().max().item()
+    call_ms = cuda_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype),
+                      reps=TIMED_REPS)
+    ms = graph_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype), reps=TIMED_REPS)
+    old_ms = graph_ms(lambda: S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma"), reps=TIMED_REPS)
     plain_ms = cuda_ms(plain, reps=2)
     lib_ms = None
     # torch._int_mm (cuBLASLt) plus the dequantise: M > 16, K and N multiples of 8
@@ -412,14 +560,48 @@ def s8_phase(sig, gen):
             lib = library()
             if not torch.equal(lib, ref):
                 log(f"  note: library call differs from plain at {sig}")
-            lib_ms = cuda_ms(library)
+            lib_ms = graph_ms(library, reps=TIMED_REPS)
         except RuntimeError as exc:  # a layout cuBLASLt refuses
             log(f"  library call refused at {sig}: {str(exc).splitlines()[0]}")
     out_bytes = torch.finfo(out_dtype).bits // 8
     flops = 2.0 * m * k * n
     nbytes = float(m * k + k * n + 4 * (m + n) + m * n * out_bytes)
-    return dict(err=err, tol=TOL_S8, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
-                bytes=nbytes, peak=PEAK_INT8_OPS, exact=exact)
+    return dict(err=err, tol=TOL_S8, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, flops=flops,
+                bytes=nbytes, peak=PEAK_INT8_OPS, exact=exact, old_ms=old_ms, old_err=old_err,
+                design=design)
+
+
+def k3_host_costs(gen) -> dict:
+    """Host microseconds per K3 launch at the int8 path's most launched
+    shape: the wgmma design's two tensor-map encodings alone (C timer in
+    csrc/s8_gemm.cu), and a whole wrapper call."""
+    import ctypes
+
+    import torch
+
+    from mvoc_tpu_torch.ops import _build
+    from mvoc_tpu_torch.ops import s8gemm as S8
+
+    m, k, n = 4096, 1280, 1280
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8).t()
+    sx, sw = torch.ones(m, device="cuda"), torch.ones(n, device="cuda")
+    fn = _build.load("s8_gemm").mvoc_s8_encode_us
+    fn.restype = ctypes.c_double
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int]
+    encode_us = fn(xq.data_ptr(), wq.data_ptr(), m, n, k, xq.stride(0), wq.stride(1), 10000)
+    if encode_us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused the K3 operands")
+    S8.s8_matmul(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        S8.s8_matmul(xq, wq, sx, sw)
+    call_us = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+    torch.cuda.synchronize()
+    return dict(encode_us=encode_us, call_us=call_us)
 
 
 def bound(ph):
@@ -475,26 +657,27 @@ def main() -> int:
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {stem}: {len(regs)} kernel instantiations, registers <= {max(regs)}, "
             f"spill stores <= {max(spills)} bytes")
-        if stem == "flash_attention":  # K1 per kernel; its shared memory is dynamic
-            for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)Compile time",
-                                       text, re.S):
-                n_regs = re.search(r"Used (\d+) registers", body).group(1)
-                n_spill = re.search(r"(\d+) bytes spill stores", body).group(1)
-                log(f"    {fn}: {n_regs} registers, {n_spill} bytes spill stores")
-            for line in text.splitlines():
-                if "C7515" in line or "serialized" in line:
-                    log(f"    {line.strip()}")
+        # per kernel; shared memory is dynamic in the tensor-core kernels
+        for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)Compile time",
+                                   text, re.S):
+            n_regs = re.search(r"Used (\d+) registers", body).group(1)
+            n_spill = re.search(r"(\d+) bytes spill stores", body).group(1)
+            log(f"    {fn}: {n_regs} registers, {n_spill} bytes spill stores")
+        for line in text.splitlines():
+            if "C7515" in line or "serialized" in line:
+                log(f"    {line.strip()}")
+    sass = {}  # tensor-core instructions in each kernel's SASS
     for meta in KERNELS.values():
-        _build.load(os.path.splitext(os.path.basename(meta["source"]))[0])
-    # K1 on the tensor cores: count HGMMA / HMMA in each K1 kernel's SASS
-    sass = flash_sass_counts()
-    if not sass:
-        log("K1 SASS tensor-core instructions: not measured (no cuobjdump)")
-    for fn, c in sorted(sass.items()):
-        log(f"K1 SASS {fn}: HGMMA {c['HGMMA']} HMMA {c['HMMA']}")
-    if sass and not any(c["HGMMA"] + c["HMMA"] for fn, c in sass.items()
-                        if "flash_wgmma_d64" in fn):
-        raise RuntimeError("the bf16 D=64 K1 kernel has no tensor-core instruction in its SASS")
+        stem = os.path.splitext(os.path.basename(meta["source"]))[0]
+        _build.load(stem)
+        sass[stem] = sass_counts(stem)
+        if not sass[stem]:
+            log(f"{stem} SASS tensor-core instructions: not measured (no cuobjdump)")
+        for fn, c in sorted(sass[stem].items()):
+            log(f"{stem} SASS {fn}: " + " ".join(f"{op} {n}" for op, n in c.items()))
+    for stem, needle, op in SASS_REQUIRED:
+        if sass[stem] and not any(c[op] for fn, c in sass[stem].items() if needle in fn):
+            raise RuntimeError(f"{stem}: kernel {needle} has no {op} in its SASS")
 
     # 2. the bf16 slice at full width
     rng = np.random.default_rng(args.seed)
@@ -533,6 +716,9 @@ def main() -> int:
     log(f"stream vs fused, one step (bf16): max |diff| {diff:.4g}, max |x| {scale:.4g}")
     if not math.isfinite(diff):
         raise RuntimeError("stream/fused step gave non-finite values")
+    profiles = {"bf16": profile_step(lambda: core.pnp_composite_core(
+        pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
+        guidance_scale=9.0, two_pass="stream", capture_weights=cw), "bf16")}
     shutil.rmtree(bf16["root"])
     if read_counts()[0]["s8_matmul"] != 0:
         raise RuntimeError("s8_matmul launched on the bf16 path")
@@ -607,6 +793,11 @@ def main() -> int:
     drift = (int8["final"] - bf16["final"]).abs().max().item()
     log(f"int8-mixed vs bf16 composite latents: max |diff| {drift:.4g} of max |x| "
         f"{bf16['final'].abs().max().item():.4g}")
+    init, cond, one, ms, pb, ps, cw = one_step_inputs(pipe, videos, masks, int8["stores"],
+                                                      steps, args.seed, "stream")
+    profiles["int8-mixed"] = profile_step(lambda: core.pnp_composite_core(
+        pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
+        guidance_scale=9.0, two_pass="stream", capture_weights=cw), "int8-mixed")
 
     # 6. one stream composite step in int8 "full", on the same seeded weights
     del pipe
@@ -651,21 +842,26 @@ def main() -> int:
             b_ms, basis = bound(ph)
             row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
-                       max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"],
+                       max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
-            extra = ""
-            if name == "flash_attention":  # rate, roofline share, library ratio, old design
-                row.update(design=ph["design"], tf_s=ph["flops"] / ph["ms"] / 1e9,
-                           bound_share=b_ms / ph["ms"], vs_library=ph["ms"] / ph["library_ms"],
-                           old_ms=ph["old_ms"], old_err=ph["old_err"])
-                extra = (f" [{ph['design']}: {row['tf_s']:.1f} TF/s, {100 * row['bound_share']:.1f}% "
-                         f"of the bound, {row['vs_library']:.2f}x the library call; PR 1 SIMT "
-                         f"design {ph['old_ms']:.4f} ms, err {ph['old_err']:.3g}]")
+            # the design launched, rate, share of the bound, ratio to the
+            # library call, and the old design's time and error
+            rate, unit = RATE[name](ph)
+            row.update(design=ph["design"], rate=rate, rate_unit=unit,
+                       bound_share=b_ms / ph["ms"], old_ms=ph["old_ms"], old_err=ph["old_err"],
+                       vs_library=None if ph["library_ms"] is None
+                       else ph["ms"] / ph["library_ms"])
+            lib_txt = ("no library call" if row["vs_library"] is None
+                       else f"{row['vs_library']:.2f}x the library call")
+            extra = (f" [{ph['design']}: {rate:.1f} {unit}, {100 * row['bound_share']:.1f}% "
+                     f"of the bound, {lib_txt}; {OLD_DESIGN[name]} design "
+                     f"{ph['old_ms']:.4f} ms, err {ph['old_err']:.3g}]")
             table.append(row)
             peak_txt = "989 TF/s" if ph["peak"] == PEAK_BF16_FLOPS else "1979 TOP/s int8"
             log(f"phase {name} {sig}: max_abs_err {ph['err']:.3g} (tol {ph['tol']:.3g}) "
-                f"kernel_ms {ph['ms']:.4f} plain_ms {ph['plain_ms']:.4f} "
+                f"kernel_ms {ph['ms']:.4f} (call_ms {ph['call_ms']:.4f}) "
+                f"plain_ms {ph['plain_ms']:.4f} "
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
                 f"main-path launches {row['launches']}{extra}")
@@ -689,21 +885,30 @@ def main() -> int:
                 if n and sig in ms_of) / max(
                 path["steps"], 1)
         wall_ms = 1e3 * sum(path["step_s"]) / max(path["steps"], 1)
+        steady_ms = 1e3 * path["step_s"][-1]  # the last step: past the first step's warm-up
+        rest = steady_ms - sum(per_step_ms[name].values())
         log(f"{name}: kernel device time per composite step (launches x phase kernel_ms): "
-            f"{ {k: round(v, 2) for k, v in per_step_ms[name].items()} } ms of "
-            f"{wall_ms:.1f} ms wall (shares: "
-            f"{ {k: round(v / wall_ms, 4) for k, v in per_step_ms[name].items()} })")
+            f"{ {k: round(v, 2) for k, v in per_step_ms[name].items()} } ms; mean step "
+            f"{wall_ms:.1f} ms wall, steady (last) step {steady_ms:.1f} ms wall; shares of the "
+            f"steady step: { {k: round(v / steady_ms, 4) for k, v in per_step_ms[name].items()} }"
+            f", the rest {rest:.1f} ms ({rest / steady_ms:.4f})")
+
+    host = k3_host_costs(gen)
+    log(f"K3 host cost per launch at [4096, 1280, 1280] -> bf16: encoding the two TMA tensor "
+        f"maps {host['encode_us']:.2f} us (mean of 10000); the whole s8_matmul call "
+        f"{host['call_us']:.1f} us on the host clock ({HOST_CALLS} calls back to back)")
 
     os.makedirs("chiprun_out", exist_ok=True)
     summary = {tag: {k: v for k, v in path.items() if k not in ("final", "root", "stores",
                                                                 "shapes", "comp_shapes")}
                for tag, path in (("bf16", bf16), ("int8_mixed", int8))}
     with open(os.path.join("chiprun_out", "chip_smoke_phases.json"), "w") as f:
-        json.dump(dict(card=card, flash_sass=sass, paths=summary, int8_full_step=dict(
+        json.dump(dict(card=card, sass=sass, paths=summary, int8_full_step=dict(
             s=full_secs, launches=full_launch, peak_gib=full_peak),
             kernel_ms_per_step=per_step_ms, reference=dict(
                 fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),
-            int8_vs_bf16_drift=drift, phases=table), f, indent=1)
+            int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles, phases=table), f,
+            indent=1)
 
     # one row per kernel, from the main path that launched it
     kernels = []

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 build_logs: Dict[str, str] = {}
 
@@ -123,10 +124,24 @@ def load(stem: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C entry point."""
+def function(stem: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point `name` of csrc/<stem>.cu's library, returning a
+    cudaError_t, with its argument types set once (built on first call):
+    setting them on every launch costs the wrappers' host time."""
+    fn = _fns.get((stem, name))
+    if fn is None:
+        fn = getattr(load(stem), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[(stem, name)] = fn
+    return fn
+
+
+def check(stem: str, err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point of
+    csrc/<stem>.cu's library."""
     if err != 0:
-        fn = lib.mvoc_error_string
+        fn = load(stem).mvoc_error_string
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err} ({fn(int(err)).decode()})")

@@ -42,6 +42,8 @@ LAUNCHES = {"flash_attention": 0, "frame_attention": 0}
 # launches per call signature, counted beside LAUNCHES: K1 (B, H, Sq, Sk, D,
 # dtype), K2 (layout, B, F, S, heads, D, dtype, masked)
 LAUNCH_SHAPES: dict = {"flash_attention": Counter(), "frame_attention": Counter()}
+# launches per design (flash_variant / frame_variant names), counted beside LAUNCHES
+LAUNCH_VARIANTS: dict = {"flash_attention": Counter(), "frame_attention": Counter()}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = (64, 512)
@@ -53,6 +55,7 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_SHAPES[k].clear()
+        LAUNCH_VARIANTS[k].clear()
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -88,7 +91,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 # takes.  The wrapper picks one from (dtype, head dim) alone; "simt" on bf16
 # serves side-by-side timing only (chip_smoke.py).
 FLASH_VARIANTS = {"simt": 0, "wgmma": 1}
-_TC_ALIGN = 16  # bytes: the wgmma variant copies rows in 16-byte pieces
+_TC_ALIGN = 16  # bytes: the tensor-core variants of K1 and K2 copy rows in 16-byte pieces
 
 
 def flash_variant(dtype: torch.dtype, d: int) -> str:
@@ -100,16 +103,19 @@ def flash_variant(dtype: torch.dtype, d: int) -> str:
     return "simt" if dtype == torch.float32 else "wgmma"
 
 
-def flash_layout_error(name: str, shape, strides, ptr: int, itemsize: int) -> Optional[str]:
-    """Why the wgmma variant cannot copy a [B, H, S, D] operand with
+def flash_layout_error(name: str, shape, strides, ptr: int, itemsize: int,
+                       kernel: str = "flash_attention",
+                       axes=("batch", "head", "seq")) -> Optional[str]:
+    """Why a tensor-core variant cannot copy an operand of this shape with
     these element strides from this address, or None.  Every row it copies
-    must start on a 16-byte boundary: the pointer, and each (batch, head,
-    seq) stride of an axis longer than 1, times the item size."""
+    must start on a 16-byte boundary: the pointer, and each stride of an
+    outer axis longer than 1 (K1: [B, H, S, D]'s batch, head and seq; K2:
+    [B, F, S, H*D]'s batch, frame and pixel), times the item size."""
     if ptr % _TC_ALIGN:
-        return f"flash_attention: {name} data pointer {ptr:#x} is not {_TC_ALIGN}-byte aligned"
-    for axis, n, st in zip(("batch", "head", "seq"), shape[:3], strides[:3]):
+        return f"{kernel}: {name} data pointer {ptr:#x} is not {_TC_ALIGN}-byte aligned"
+    for axis, n, st in zip(axes, shape[:3], strides[:3]):
         if n > 1 and (st * itemsize) % _TC_ALIGN:
-            return (f"flash_attention: {name} {axis} stride {st} is not a multiple of "
+            return (f"{kernel}: {name} {axis} stride {st} is not a multiple of "
                     f"{_TC_ALIGN // itemsize} elements")
     return None
 
@@ -136,16 +142,14 @@ def _flash_cuda(q, k, v, variant: Optional[str] = None) -> torch.Tensor:
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    lib = _build.load("flash_attention")
-    fn = lib.mvoc_flash_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn = _build.function("flash_attention", "mvoc_flash_attention", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), FLASH_VARIANTS[variant],
              _DTYPE_CODE[q.dtype], b, h, sq, sk, d, strides, 1.0 / math.sqrt(d), _stream_ptr(q))
-    _build.check(lib, err, f"flash_attention launch ({variant})")
+    _build.check("flash_attention", err, f"flash_attention launch ({variant})")
     LAUNCHES["flash_attention"] += 1
     LAUNCH_SHAPES["flash_attention"][(b, h, sq, sk, d, str(q.dtype))] += 1
+    LAUNCH_VARIANTS["flash_attention"][variant] += 1
     return out
 
 
@@ -201,41 +205,69 @@ def frame_attention_plain(q, k, v, heads: int, mask: Optional[torch.Tensor] = No
     return out
 
 
-def _frame_cuda(q, k, v, heads, mask, layout) -> torch.Tensor:
+# K2's designs on the card (csrc/frame_attention.cu), by the code its C entry
+# takes.  The wrapper picks one from (dtype, head dim) alone; "simt" on bf16
+# at D = 64 serves side-by-side timing only (chip_smoke.py).
+FRAME_VARIANTS = {"simt": 0, "mma": 1}
+
+
+def frame_variant(dtype: torch.dtype, d: int) -> str:
+    """The K2 design a (dtype, head dim) takes on the card, the same every
+    time: bf16 at D = 64 runs on the tensor cores (mma.sync); fp32 keeps the
+    SIMT kernel's exact fp32 FMAs, and D = 4 (the image-latents temporal
+    encoder) the SIMT kernel too."""
+    _require(dtype in _DTYPE_CODE, f"frame_attention: dtype {dtype} not supported on CUDA")
+    _require(d in FRAME_HEAD_DIMS, f"frame_attention: head dim {d} not in {FRAME_HEAD_DIMS}")
+    return "mma" if dtype == torch.bfloat16 and d == 64 else "simt"
+
+
+def _frame_cuda(q, k, v, heads, mask, layout, variant: Optional[str] = None) -> torch.Tensor:
     qn, kn, vn = (_as_natural(t, layout) for t in (q, k, v))
     b, f, s, inner = qn.shape
     _require(q.dtype in _DTYPE_CODE, f"frame_attention: dtype {q.dtype} not supported on CUDA")
     _require(k.dtype == q.dtype and v.dtype == q.dtype, "frame_attention: q/k/v dtypes differ")
     _require(inner % heads == 0, f"frame_attention: {inner} channels, {heads} heads")
     d = inner // heads
-    _require(d in FRAME_HEAD_DIMS, f"frame_attention: head dim {d} not in {FRAME_HEAD_DIMS}")
+    default = frame_variant(q.dtype, d)  # also refuses an unsupported head dim
+    variant = variant or default
+    _require(variant in FRAME_VARIANTS, f"frame_attention: unknown variant {variant!r}")
+    _require(variant == "simt" or (q.dtype == torch.bfloat16 and d == 64),
+             f"frame_attention: variant {variant} takes bf16 at head dim 64, not {q.dtype} "
+             f"at {d}")
     _require(f <= FRAME_MAX_FRAMES, f"frame_attention: {f} frames > {FRAME_MAX_FRAMES}")
     _require(q.device == k.device == v.device, "frame_attention: tensors on different devices")
     for name, t in (("k", kn), ("v", vn)):
         _require(t.shape == qn.shape and t.stride() == qn.stride(),
                  f"frame_attention: {name} must match q in shape and strides")
     _require(qn.stride(-1) == 1, "frame_attention: channel axis must be contiguous")
+    # q's strides when q is dense (a permuted layout), else contiguous: a
+    # strided projection (one slice of a fused q/k/v output) gets a dense out
     out = torch.empty_like(q, memory_format=torch.preserve_format)
     on = _as_natural(out, layout)
-    _require(on.stride() == qn.stride(), "frame_attention: output strides differ from q")
+    _require(on.stride(-1) == 1, "frame_attention: output channel axis must be contiguous")
+    if variant == "mma":
+        for name, t in (("q", qn), ("k", kn), ("v", vn), ("out", on)):
+            problem = flash_layout_error(name, t.shape, t.stride(), t.data_ptr(),
+                                         t.element_size(), "frame_attention",
+                                         ("batch", "frame", "pixel"))
+            if problem:
+                raise ValueError(problem)
     bias = band_bias(mask)
     if bias is not None:
         _require(bias.shape == (f, f), f"frame_attention: mask {tuple(bias.shape)} vs F={f}")
         bias = bias.to(q.device)
-    strides = (ctypes.c_longlong * 3)(*qn.stride()[:3])
-    lib = _build.load("frame_attention")
-    fn = lib.mvoc_frame_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    strides = (ctypes.c_longlong * 6)(*qn.stride()[:3], *on.stride()[:3])
+    fn = _build.function("frame_attention", "mvoc_frame_attention", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     err = fn(qn.data_ptr(), kn.data_ptr(), vn.data_ptr(), on.data_ptr(),
-             None if bias is None else bias.data_ptr(),
+             None if bias is None else bias.data_ptr(), FRAME_VARIANTS[variant],
              _DTYPE_CODE[q.dtype], b, f, s, heads, d, strides,
              1.0 / math.sqrt(d), _stream_ptr(q))
-    _build.check(lib, err, "frame_attention launch")
+    _build.check("frame_attention", err, f"frame_attention launch ({variant})")
     LAUNCHES["frame_attention"] += 1
     LAUNCH_SHAPES["frame_attention"][
         (layout, b, f, s, heads, d, str(q.dtype), mask is not None)] += 1
+    LAUNCH_VARIANTS["frame_attention"][variant] += 1
     return out
 
 

@@ -99,3 +99,46 @@ def test_flash_layout_error_is_a_pure_check(shape, strides, ptr, itemsize, probl
         assert got is None
     else:
         assert got is not None and problem in got
+
+
+@pytest.mark.parametrize("dtype,d,want", [(torch.bfloat16, 64, "mma"),
+                                          (torch.bfloat16, 4, "simt"),
+                                          (torch.float32, 64, "simt"),
+                                          (torch.float32, 4, "simt")])
+def test_frame_variant_follows_dtype_and_head_dim(dtype, d, want):
+    """K2's design on the card is a function of (dtype, head dim) alone:
+    bf16 at D = 64 on the tensor cores (mma.sync), fp32 and D = 4 on the
+    SIMT kernel."""
+    assert tattn.frame_variant(dtype, d) == want
+    assert want in tattn.FRAME_VARIANTS
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 128)])
+def test_frame_variant_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="dtype|head dim"):
+        tattn.frame_variant(dtype, d)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,problem", [
+    # natural [B, F, S, H*D] at the main path's heaviest shape
+    ((1, 16, 4096, 320), (16 * 4096 * 320, 4096 * 320, 320, 1), 0x7f0000000000, None),
+    # pixel-major [S, F, H*D] viewed as [1, F, S, H*D]
+    ((1, 16, 4096, 320), (16 * 4096 * 320, 320, 16 * 320, 1), 0x7f0000000000, None),
+    # the k slice of a fused [.., 3 * H*D] projection
+    ((2, 16, 300, 320), (16 * 300 * 960, 300 * 960, 960, 1), 0x7f0000000000 + 640, None),
+    ((1, 16, 40, 320), (16 * 40 * 324, 40 * 324, 324, 1), 0x7f0000000000, "pixel stride 324"),
+    ((1, 16, 1, 320), (16 * 324, 324, 324, 1), 0x7f0000000000, "frame stride 324"),
+    ((1, 1, 1, 320), (324, 324, 324, 1), 0x7f0000000000, None),  # size-1 axes never step
+    ((1, 16, 40, 320), (16 * 40 * 320, 40 * 320, 320, 1), 0x7f0000000008, "not 16-byte"),
+])
+def test_frame_layout_error_is_a_pure_check(shape, strides, ptr, problem):
+    """The mma design's layout condition on the [B, F, S, H*D] view, computed
+    without a card: every 128-byte (pixel, head) row starts on a 16-byte
+    boundary."""
+    got = tattn.flash_layout_error("q", shape, strides, ptr, 2, "frame_attention",
+                                   ("batch", "frame", "pixel"))
+    if problem is None:
+        assert got is None
+    else:
+        assert got is not None and problem in got and got.startswith("frame_attention")

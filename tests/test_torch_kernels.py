@@ -65,6 +65,115 @@ def test_frame_kernel_matches_plain(cuda_device, dtype, layout, heads, f, d, win
     assert (got - want).abs().max().item() <= tol
 
 
+def _frame_qkv(device, shape, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype) for _ in range(3))
+
+
+def _check_frame(got, q, k, v, heads, mask, layout):
+    """Against the plain version in fp32 from the same inputs."""
+    want = tattn.frame_attention_plain(q.float(), k.float(), v.float(), heads, mask=mask,
+                                       layout=layout)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    tol = 2e-5 if q.dtype == torch.float32 else BF16_REL * want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("layout", ["natural", "sf"])
+@pytest.mark.parametrize("d", [4, 64])
+@pytest.mark.parametrize("f", [1, 2, 15, 16, 17, 33, 64])
+def test_frame_bf16_at_frame_edges(cuda_device, f, d, layout, masked):
+    """K2's bf16 design for the head dim (D = 64: mma.sync, F padded to 16,
+    32, 48 or 64 rows; D = 4: SIMT) at frame counts around every 16-row
+    tile, with and without the band, in both layouts."""
+    s, heads = 45, 3
+    shape = (2, f, s, heads * d) if layout == "natural" else (s, f, heads * d)
+    q, k, v = _frame_qkv(cuda_device, shape, seed=f + d)
+    mask = torch.from_numpy(_band(f, 5)).to(cuda_device) if masked else None
+    before = dict(tattn.LAUNCH_VARIANTS["frame_attention"])
+    got = tattn.frame_attention(q, k, v, heads, mask=mask, layout=layout)
+    torch.cuda.synchronize()
+    want_variant = "mma" if d == 64 else "simt"
+    after = tattn.LAUNCH_VARIANTS["frame_attention"]
+    assert after[want_variant] == before.get(want_variant, 0) + 1
+    _check_frame(got, q, k, v, heads, mask, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("b,s,heads", [(1, 4097, 5), (3, 7, 1), (1, 1, 2)])
+def test_frame_bf16_ragged_pixel_counts(cuda_device, variant, b, s, heads):
+    """Unit counts (B * S * heads) that leave the last warps of the
+    grid-stride loop, and the SIMT design's last pixel tile, ragged."""
+    q, k, v = _frame_qkv(cuda_device, (b, 16, s, heads * 64), seed=s)
+    got = tattn._frame_cuda(q, k, v, heads, None, "natural", variant)
+    torch.cuda.synchronize()
+    _check_frame(got, q, k, v, heads, None, "natural")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("layout", ["natural", "sf"])
+def test_frame_bf16_reads_strided_projections(cuda_device, variant, layout):
+    """q, k and v the three slices of one fused [.., 3 * H*D] projection
+    (row stride 3 * H*D, k and v H*D and 2 * H*D elements in): read in
+    place, and the output comes back dense."""
+    heads, f, s = 5, 16, 300
+    inner = heads * 64
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    lead = (2, f, s) if layout == "natural" else (s, f)
+    qkv = torch.randn(*lead, 3 * inner, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv[..., :inner], qkv[..., inner:2 * inner], qkv[..., 2 * inner:]
+    mask = torch.from_numpy(_band(f, 7)).to(cuda_device)
+    got = tattn._frame_cuda(q, k, v, heads, mask, layout, variant)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    _check_frame(got, q, k, v, heads, mask, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,f,d", [("natural", 16, 64), ("sf", 33, 64), ("sf", 64, 4)])
+def test_frame_fp32_takes_the_simt_kernel(cuda_device, layout, f, d):
+    """fp32 stays on the exact-fp32 SIMT kernel (tensor cores would take it
+    to TF32): 2e-5 of the plain version."""
+    heads, s = 4, 50
+    shape = (2, f, s, heads * d) if layout == "natural" else (s, f, heads * d)
+    q, k, v = _frame_qkv(cuda_device, shape, dtype=torch.float32, seed=f)
+    before = tattn.LAUNCH_VARIANTS["frame_attention"]["simt"]
+    got = tattn.frame_attention(q, k, v, heads, layout=layout)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCH_VARIANTS["frame_attention"]["simt"] == before + 1
+    _check_frame(got, q, k, v, heads, None, layout)
+
+
+@pytest.mark.cuda
+def test_frame_bf16_d64_takes_the_mma_design(cuda_device):
+    """The bf16 D = 64 call launches the mma.sync design, and its output is
+    the named variant's bit for bit."""
+    q, k, v = _frame_qkv(cuda_device, (1, 16, 256, 5 * 64), seed=9)
+    before = dict(tattn.LAUNCH_VARIANTS["frame_attention"])
+    got = tattn.frame_attention(q, k, v, 5)
+    after = dict(tattn.LAUNCH_VARIANTS["frame_attention"])
+    assert after.get("mma", 0) == before.get("mma", 0) + 1
+    assert after.get("simt", 0) == before.get("simt", 0)
+    assert torch.equal(got, tattn._frame_cuda(q, k, v, 5, None, "natural", "mma"))
+
+
+@pytest.mark.cuda
+def test_frame_tensor_core_path_refuses_misaligned_layouts(cuda_device):
+    """A pixel stride that is not a multiple of 8 elements raises before any
+    launch on the mma design; the SIMT design takes it."""
+    wide = torch.randn(1, 16, 40, 5 * 64 + 4, device=cuda_device).bfloat16()[..., :5 * 64]
+    before = tattn.LAUNCHES["frame_attention"]
+    with pytest.raises(ValueError, match="pixel stride 324"):
+        tattn.frame_attention(wide, wide, wide, 5)
+    assert tattn.LAUNCHES["frame_attention"] == before
+    got = tattn._frame_cuda(wide, wide, wide, 5, None, "natural", "simt")
+    _check_frame(got, wide, wide, wide, 5, None, "natural")
+
+
 EDGES = (1, 63, 64, 65, 127, 145, 4095)
 
 
@@ -223,6 +332,70 @@ def test_s8_kernel_extremes_and_row_major_weight(cuda_device):
     xq, wq, sx, sw = _s8_operands(cuda_device, 33, 96, 40, weight_nk=False)
     assert torch.equal(ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.bfloat16),
                        ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.bfloat16))
+
+
+S8_EDGES = (1, 63, 64, 65, 127, 128, 129, 255, 257)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+@pytest.mark.parametrize("k", [16, 112, 128, 144, 1280, 23040])
+def test_s8_designs_bitwise_at_tile_edges(cuda_device, variant, k):
+    """Both K3 designs bit for bit their plain version at M and N around the
+    128 x 128 output tile and its 64-row halves (the TMA boxes zero-fill past
+    M, N and K) and K around the 128-deep K tile, both output dtypes."""
+    for i, m in enumerate(S8_EDGES):
+        for j, n in enumerate(S8_EDGES):
+            out_dtype = torch.bfloat16 if (i + j) % 2 else torch.float32
+            xq, wq, sx, sw = _s8_operands(cuda_device, m, k, n, seed=i * 16 + j)
+            got = ts8._s8_cuda(xq, wq, sx, sw, out_dtype, variant)
+            want = ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=out_dtype)
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            assert torch.equal(got, want), (m, k, n, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 1280, 320), (300, 23040, 320), (8192, 2560, 640),
+                                   (4096, 1280, 10240)])
+def test_s8_wgmma_at_main_path_widths(cuda_device, m, k, n):
+    """N = 320 (a ragged last column tile), the main path's deep K, and its
+    widest N."""
+    xq, wq, sx, sw = _s8_operands(cuda_device, m, k, n, seed=m + n)
+    got = ts8._s8_cuda(xq, wq, sx, sw, torch.bfloat16, "wgmma")
+    assert torch.equal(got, ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_s8_wgmma_extremes_over_the_deepest_k(cuda_device):
+    """All operands at +-127 over K = 23040: |acc| = 23040 * 127^2, exact."""
+    m, k, n = 200, 23040, 320
+    xq = torch.full((m, k), 127, dtype=torch.int8, device=cuda_device)
+    xq[1::2] = -127
+    wq = torch.full((n, k), 127, dtype=torch.int8, device=cuda_device)
+    wq[::3] = -127
+    wq = wq.t()
+    sx = torch.ones(m, device=cuda_device)
+    sw = torch.ones(n, device=cuda_device)
+    got = ts8._s8_cuda(xq, wq, sx, sw, torch.float32, "wgmma")
+    assert torch.equal(got[0, 1:3], torch.full((2,), float(k * 127 * 127), device=cuda_device))
+    assert torch.equal(got, ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_s8_layouts_pick_their_design(cuda_device):
+    """The main path's operands take the wgmma design; K = 36 and a
+    row-major [K, N] weight take PR 2's mma.sync design, still bitwise."""
+    cases = [((4096, 1280, 1280), True, "wgmma"), ((17, 36, 9), True, "mma"),
+             ((33, 96, 40), False, "mma")]
+    for (m, k, n), weight_nk, want in cases:
+        xq, wq, sx, sw = _s8_operands(cuda_device, m, k, n, weight_nk=weight_nk)
+        before = ts8.LAUNCH_VARIANTS["s8_matmul"][want]
+        got = ts8.s8_matmul(xq, wq, sx, sw, out_dtype=torch.bfloat16)
+        assert ts8.LAUNCH_VARIANTS["s8_matmul"][want] == before + 1
+        assert torch.equal(got, ts8.s8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.bfloat16))
+    xq, wq, sx, sw = _s8_operands(cuda_device, 17, 36, 9)
+    with pytest.raises(ValueError, match="cannot take this layout"):
+        ts8._s8_cuda(xq, wq, sx, sw, torch.bfloat16, "wgmma")
 
 
 @pytest.mark.cuda

@@ -307,3 +307,56 @@ def test_enable_int8_modes():
     assert quant and pipe.unet.conv_in.weight.dtype == torch.float32
     assert all(not isinstance(m, (TQ.QuantLinear, TQ.QuantConv)) for m in pipe.vae.modules())
     assert pipe.unet.dtype == torch.float32
+
+
+def _s8_layout(m, k, n, weight_nk=True, x_offset=0, x_pitch=None):
+    """int8 operands on the CPU in a given layout: x with a row pitch and a
+    byte offset into its storage, w as [N, K] storage viewed [K, N] or as a
+    row-major [K, N]."""
+    pitch = x_pitch or k
+    xs = torch.zeros(m * pitch + x_offset + 16, dtype=torch.int8)
+    xq = xs[x_offset:x_offset + m * pitch].view(m, pitch)[:, :k]
+    wq = torch.zeros((n, k), dtype=torch.int8).t() if weight_nk else torch.zeros(
+        (k, n), dtype=torch.int8)
+    return xq, wq
+
+
+@pytest.mark.parametrize("layout,want", [
+    (dict(m=4096, k=1280, n=1280), "wgmma"),                 # the main path
+    (dict(m=1, k=23040, n=320), "wgmma"),                    # one row, deepest K
+    (dict(m=17, k=36, n=9), "mma"),                          # K = 36: 36-byte rows
+    (dict(m=33, k=96, n=40, weight_nk=False), "mma"),        # row-major weight: N-contiguous
+    (dict(m=64, k=128, n=64, x_pitch=144), "wgmma"),         # padded rows, 144 bytes
+    (dict(m=64, k=128, n=64, x_pitch=132), "mma"),           # 132-byte rows
+    (dict(m=64, k=128, n=64, x_offset=8), "mma"),            # base off 16 bytes
+])
+def test_s8_variant_follows_the_layout(layout, want):
+    """K3's design on the card is a function of the operands' layout alone:
+    TMA (wgmma) where both are K-contiguous with 16-byte rows and bases,
+    PR 2's mma.sync kernel elsewhere."""
+    xq, wq = _s8_layout(**layout)
+    if layout.get("x_offset", 0) == 0:
+        assert xq.data_ptr() % 16 == 0
+    assert TS8.s8_variant(xq, wq, torch.bfloat16) == want
+    assert want in TS8.S8_VARIANTS
+
+
+@pytest.mark.parametrize("xshape,wshape,dtype,out_dtype,match", [
+    ((8, 32), (32, 8), torch.int16, torch.float32, "int8"),
+    ((8, 32), (32, 8), torch.int8, torch.float16, "out dtype"),
+    ((8, 32), (16, 8), torch.int8, torch.float32, "do not chain"),
+    ((2, TS8.MAX_K + 1), (TS8.MAX_K + 1, 2), torch.int8, torch.float32, "overflow"),
+    ((0, 32), (32, 8), torch.int8, torch.float32, "empty"),
+])
+def test_s8_variant_refuses_what_no_design_takes(xshape, wshape, dtype, out_dtype, match):
+    xq = torch.zeros(xshape, dtype=dtype)
+    wq = torch.zeros(wshape, dtype=torch.int8)
+    with pytest.raises(ValueError, match=match):
+        TS8.s8_variant(xq, wq, out_dtype)
+
+
+def test_s8_on_cpu_counts_no_launch_of_any_design():
+    xq, wq = _s8_layout(64, 128, 64)
+    TS8.reset_launch_counts()
+    TS8.s8_matmul(xq, wq, torch.ones(64), torch.ones(64), out_dtype=torch.float32)
+    assert TS8.LAUNCHES["s8_matmul"] == 0 and not TS8.LAUNCH_VARIANTS["s8_matmul"]
