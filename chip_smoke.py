@@ -1,7 +1,8 @@
 """On-card smoke run of mvoc_tpu_torch: builds the CUDA kernels, drives the
 main paths (invert -> stream composite -> decode in bf16, then the same in
-int8) at full I2VGen-XL width on one CUDA card, and holds every kernel
-against its plain PyTorch version at every shape those runs launched it with.
+int8, then both CLIs at the templates' 1280 x 720) at full I2VGen-XL width on
+one CUDA card, and holds every kernel against its plain PyTorch version at
+every shape those runs launched it with.
 
     python3 chip_smoke.py [--steps 3] [--seed 0]
 
@@ -33,8 +34,22 @@ Phases, in order (each failure ends the run with a non-zero exit):
      the bf16 and of the int8-mixed path runs again under torch.profiler:
      its wall time with and without the profiler, the device's busy time
      and idle share, and device time by kernel group);
-  7. kernel phases: K1 and K2 at every distinct shape the bf16 slice
-     launched, plus a ragged 14400-token K1 case, each against its plain
+  7. the CLI phase: a demo tree of three synthetic 16-frame 1280 x 720
+     videos (bg, obj1, obj2) as PNG frame directories, an edited first
+     frame and two rectangle masks authored at 1280 x 720, with group JSONs
+     over the shipped configs/group_*/template.yaml (cut: inversion and
+     composite n_steps = --steps, recon from t_idx 1, composite from t_idx 1
+     with fusion_step [0, 1]; every other key the template's: cfg 9, the
+     fused two_pass=False path, natural layout, decode_chunk_size 1); a
+     fresh bf16 pipeline through the CLIs' apply_unet_options and
+     apply_quantize, then cli.inverse.run (3 inversions, the reconstruction
+     of bg scored by PSNR / SSIM) and cli.composite.run, counts set to 0
+     just before and read just after; per CLI stage its wall time and
+     K1 / K2 / K3 launches (K1, K2 > 0 and K3 = 0 required), the peak
+     device memory, the trajectory container written, the files written
+     (16 frames at 1280 x 720, the gif, and the mp4 when OpenCV exists);
+  8. kernel phases: K1 and K2 at every distinct shape the bf16 slice and
+     the CLI phase launched, plus a ragged 14400-token K1 case, each against its plain
      version computed in fp32 from the same bf16 inputs; K3 at every
      (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
      bitwise against its plain version.  Each with its device time
@@ -116,6 +131,8 @@ SASS_REQUIRED = (("flash_attention", "flash_wgmma_d64", "HGMMA"),
                  ("frame_attention", "frame_mma_kernel", "HMMA"),
                  ("s8_gemm", "s8_wgmma_kernel", "IGMMA"))  # int8 wgmma
 PROMPT = "a red boat and a surfer on the sea"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_SIZE = (1280, 720)  # both shipped templates' image_size
 
 
 def log(*a):
@@ -180,22 +197,6 @@ def graph_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def synthetic_video(rng, frames: int, size: int):
-    """A seeded smooth colour field with a moving bright square."""
-    from PIL import Image
-
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-    phase = rng.uniform(0, 2 * np.pi, 3)
-    base = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (xx + yy) + p) for p in phase], -1)
-    out = []
-    for i in range(frames):
-        img = base.copy()
-        x0 = (size // 8 + i * size // (4 * frames)) % (size - size // 4)
-        img[size // 3: size // 3 + size // 6, x0: x0 + size // 6] = 1.0
-        out.append(Image.fromarray((img * 255).astype(np.uint8)))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +389,202 @@ def profile_step(run, tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the CLI phase: both CLIs at the templates' 1280 x 720
+# ---------------------------------------------------------------------------
+
+
+def cli_phase(steps: int, seed: int) -> dict:
+    """The inversion CLI (3 videos, the reconstruction round trip on bg) and
+    the composite CLI (fused, N = 2) on a demo tree of 16-frame 1280 x 720
+    videos, through the CLIs' own configure / apply_unet_options /
+    apply_quantize / run, with every launch count set to 0 just before and
+    read just after; wall time, launches and peak memory per CLI stage."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from mvoc_tpu_torch import config as cfglib
+    from mvoc_tpu_torch.cli import common, composite, inverse
+    from mvoc_tpu_torch.io import media
+    from mvoc_tpu_torch.io.trajectory import NATIVE_NAME, STACK_NAME
+    from mvoc_tpu_torch.pipeline import core
+    from mvoc_tpu_torch.utils import testing as tt
+    from mvoc_tpu_torch.utils.profiling import StepTimer
+
+    width, height, nf = CLI_SIZE[0], CLI_SIZE[1], 16
+    templates = {k: cfglib.load(os.path.join(ROOT, "configs", f"group_{k}", "template.yaml"))
+                 for k in ("inversion", "composite")}
+    # only the schedule depth is cut: every other key is the template's
+    log(f"cli: templates {', '.join(f'configs/group_{k}/template.yaml' for k in templates)}; "
+        f"cuts: inversion n_steps {steps} (template "
+        f"{templates['inversion'].inverse_config.n_steps}), recon n_steps {steps} from t_idx 1 "
+        f"(template {templates['inversion'].recon_config.n_steps} from "
+        f"{templates['inversion'].recon_config.ddim_init_latents_t_idx}), composite n_steps "
+        f"{steps} from t_idx 1 with fusion_step [0, 1] (template "
+        f"{templates['composite'].n_steps} from {templates['composite'].ddim_init_latents_t_idx}, "
+        f"{list(templates['composite'].fusion_step)})")
+    device = common.template_device(templates["inversion"])
+    pipe, build_s = sync_time(lambda: tt.build_full_pipeline(seed=seed, device=device))
+    pipe = common.apply_unet_options(pipe, templates["inversion"])
+    pipe = common.apply_quantize(pipe, templates["inversion"])
+    log(f"cli: pipeline on {device} (template device {templates['inversion'].device!r}), "
+        f"built in {build_s:.1f} s; UNet temporal_natural_layout "
+        f"{pipe.unet.config.temporal_natural_layout}, quantize "
+        f"{templates['inversion'].get('quantize', None)}")
+    if media.cv2 is None:
+        log("cli: OpenCV is absent on this machine: the composite and recon exports run "
+            "without the mp4 (the CLIs themselves raise without OpenCV)")
+        media.export_to_video = lambda frames, path, fps=8: path
+
+    stages, peaks, calls, open_stages, step_s = {}, {}, {}, [], []
+
+    class CountingTimer(StepTimer):
+        """StepTimer whose stages also record their kernel launches, their
+        calls and their peak device memory (nested stages included)."""
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            torch.cuda.synchronize()
+            before = read_counts()[0]
+            for n in open_stages:  # the peak so far belongs to every open stage
+                peaks[n] = max(peaks.get(n, 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            open_stages.append(name)
+            with super().stage(name):
+                yield
+                torch.cuda.synchronize()
+            open_stages.pop()
+            peak = torch.cuda.max_memory_allocated()
+            for n in open_stages + [name]:
+                peaks[n] = max(peaks.get(n, 0), peak)
+            stages[name] = {k: stages.get(name, {}).get(k, 0) + v
+                            for k, v in _minus(read_counts()[0], before).items()}
+            calls[name] = calls.get(name, 0) + 1
+
+    timer = CountingTimer()
+    last = [0.0]
+
+    def on_step(i):  # composite steps, synchronised
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        last[0] = now
+
+    def timed(owner, attr, name):
+        """owner.attr as a stage of the timer (sub-stages of the CLI stages:
+        the pipeline's entry points, its step loops and the VAE decode)."""
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, **kw):
+            if attr == "pnp_composite_core":
+                kw["step_callback"] = on_step
+                torch.cuda.synchronize()
+                last[0] = time.perf_counter()
+            with timer.stage(name):
+                return fn(*a, **kw)
+
+        setattr(owner, attr, wrapped)
+        return fn
+
+    for attr in ("invert", "sample", "sample_composite", "decode_latents"):
+        timed(pipe, attr, f"pipe.{attr}")
+    # the host's share: frame loading and the exports
+    originals = [(mod, attr, timed(mod, attr, f"{mod.__name__.split('.')[-1]}.{attr}"))
+                 for mod, attr in ((core, "ddim_inversion_core"), (core, "ddim_sampling_core"),
+                                   (core, "pnp_composite_core"), (media, "load_video_frames"),
+                                   (media, "export_to_video"), (media, "export_to_gif"),
+                                   (composite, "_load_frame_dir"), (composite, "load_entry_masks"))]
+    tmp = tempfile.mkdtemp(prefix="mvoc_smoke_cli_")
+    paths = tt.write_demo_tree(tmp, width, height, nf, steps, seed=seed)
+    inv_cfgs = inverse.configure(templates["inversion"], cfglib.load_json_list(paths["inversion"]))
+    comp_cfgs = composite.configure(templates["composite"],
+                                    cfglib.load_json_list(paths["composite"]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    inverse.run(pipe, inv_cfgs, timer=timer)
+    composite.run(pipe, comp_cfgs, timer=timer)
+    total_s = time.perf_counter() - t0
+    launches, shapes = read_counts()
+    for mod, attr, fn in originals:
+        setattr(mod, attr, fn)
+    peak = max(peaks.values()) / 2**30
+    times = timer.summary()
+    for name, secs in times.items():
+        log(f"cli stage {name}: {secs:.2f} s wall over {calls[name]} call(s), peak memory "
+            f"{peaks[name] / 2**30:.2f} GiB, launches {stages[name]}")
+    log(f"cli: composite steps {[round(t, 3) for t in step_s]} s")
+    log(f"cli: both CLIs in {total_s:.1f} s; launches {launches}; peak device memory "
+        f"{peak:.2f} GiB; {card_line()}")
+    for name, n in stages.items():
+        if n["s8_matmul"] != 0:
+            raise RuntimeError(f"cli stage {name}: s8_matmul launched on the bf16 path")
+        if name.startswith(("invert/", "composite/")) and (
+                n["flash_attention"] <= 0 or n["frame_attention"] <= 0):
+            raise RuntimeError(f"cli stage {name}: K1 or K2 was never launched ({n})")
+
+    containers = {}
+    for cfg in inv_cfgs:
+        out = cfg.inverse_config.output_dir
+        containers[cfg.video_name] = [n for n in (NATIVE_NAME, STACK_NAME)
+                                      if os.path.exists(os.path.join(out, n))]
+        if not containers[cfg.video_name]:
+            raise RuntimeError(f"cli: no trajectory container written in {out}")
+    log(f"cli: trajectory containers written: {containers}")
+    bg = next(c for c in inv_cfgs if c.video_name == "bg")
+    with open(os.path.join(bg.output_dir, "recon_metrics.txt")) as f:
+        recon = {k: float(v) for k, v in (line.split("=") for line in f.read().split())}
+    log(f"cli: reconstruction of bg (random weights): PSNR {recon['psnr_db']:.4f} dB, "
+        f"SSIM {recon['ssim']:.4f}")
+    if not all(math.isfinite(v) for v in recon.values()):
+        raise RuntimeError(f"cli: non-finite reconstruction scores {recon}")
+
+    want = {"recon": [os.path.join(bg.output_dir, "ddim_reconstruction.gif")],
+            "composite": [os.path.join(composite.export_dir(comp_cfgs[0]), "video.gif")]}
+    if media.cv2 is not None:
+        want["recon"].append(os.path.join(bg.output_dir, "ddim_reconstruction.mp4"))
+        want["composite"].append(os.path.join(composite.export_dir(comp_cfgs[0]), "video.mp4"))
+    out_dir = composite.export_dir(comp_cfgs[0])
+    frames = sorted(f for f in os.listdir(out_dir) if f.startswith("video_") and f.endswith(".png"))
+    sizes = {Image.open(os.path.join(out_dir, f)).size for f in frames}
+    written = {k: [os.path.relpath(p, tmp) for p in v if os.path.exists(p)] for k, v in want.items()}
+    log(f"cli: files written: {len(frames)} composite frames of sizes {sorted(sizes)} in "
+        f"{os.path.relpath(out_dir, tmp)!r}; {written}")
+    if len(frames) != nf or sizes != {(width, height)}:
+        raise RuntimeError(f"cli: expected {nf} composite frames at {width}x{height}")
+    for kind, files in want.items():
+        for p in files:
+            if not os.path.exists(p) or os.path.getsize(p) == 0:
+                raise RuntimeError(f"cli: {kind} output {p} missing")
+    if media.cv2 is not None:
+        for p in (want["recon"][1], want["composite"][1]):
+            cap = media.cv2.VideoCapture(p)
+            n, shape = 0, None
+            while True:
+                ok, fr = cap.read()
+                if not ok:
+                    break
+                n, shape = n + 1, fr.shape
+            cap.release()
+            log(f"cli: {os.path.relpath(p, tmp)} decodes to {n} frames of {shape}")
+            if n != nf or shape != (height, width, 3):
+                raise RuntimeError(f"cli: {p} holds {n} frames of {shape}")
+    gif = Image.open(want["composite"][0])
+    if getattr(gif, "n_frames", 1) != nf or gif.size != (width, height):
+        raise RuntimeError(f"cli: video.gif holds {getattr(gif, 'n_frames', 1)} frames of "
+                           f"{gif.size}")
+    shutil.rmtree(tmp)
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, stages=stages, stage_s=times,
+                stage_calls=calls, stage_peak_gib={k: v / 2**30 for k, v in peaks.items()},
+                composite_step_s=step_s, total_s=total_s, peak_gib=peak,
+                containers=containers, recon=recon, frames=len(frames),
+                mp4=media.cv2 is not None)
+
+
+# ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 
@@ -422,17 +619,23 @@ def flash_phase(sig, gen):
                .transpose(1, 2) for s in (sq, sk, sk))
     out, design = launched_variant(A, "flash_attention", lambda: A.flash_attention(q, k, v))
     old = A._flash_cuda(q, k, v, "simt")  # the PR 1 design, kept for this comparison
-    # plain version in fp32 from the same bf16 inputs, batch-chunked to keep
-    # its [Sq, Sk] logits under ~4 GB
-    chunk = max(1, int(4e9 // (h * sq * sk * 4)))
-    ref = _chunked(A.flash_attention_plain, b, chunk, q.float(), k.float(), v.float())
+    # plain version in fp32 from the same bf16 inputs, over (batch x head)
+    # slices in chunks that keep their [Sq, Sk] fp32 logits under ~4 GB (one
+    # slice at 14400 tokens holds 0.83 GB of them)
+    chunk = max(1, int(4e9 // (sq * sk * 4)))
+
+    def plain(q, k, v):
+        flat = [t.reshape(b * h, 1, t.shape[2], d) for t in (q, k, v)]
+        return _chunked(A.flash_attention_plain, b * h, chunk, *flat).reshape(b, h, sq, d)
+
+    ref = plain(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     old_err = (old.float() - ref).abs().max().item()
     tol = TOL_BF16 * ref.abs().max().item()
     call_ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
     ms = graph_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
     old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt"), reps=3)
-    plain_ms = cuda_ms(lambda: _chunked(A.flash_attention_plain, b, chunk, q, k, v), reps=1)
+    plain_ms = cuda_ms(lambda: plain(q, k, v), reps=1)
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=TIMED_REPS)
     flops = 4.0 * b * h * sq * sk * d
     nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
@@ -507,8 +710,15 @@ def frame_phase(sig, gen):
             -1, heads, f, d).contiguous()
 
     qr, kr, vr = relaid(q), relaid(k), relaid(v)
-    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask),
-                      reps=TIMED_REPS)
+    lib_ms = None
+    try:  # some of its kernels put batch x heads on one grid axis, which stops at 65535
+        F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+        torch.cuda.synchronize()
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask),
+                          reps=TIMED_REPS)
+    except RuntimeError as exc:  # a launch the library refuses (not the port's path)
+        log(f"  library call refused at {sig} (batch x heads {qr.shape[0] * heads}): "
+            f"{str(exc).splitlines()[0]}")
     n = b * s * heads
     flops = 4.0 * n * f * f * d
     nbytes = 4.0 * n * f * d * 2
@@ -687,7 +897,7 @@ def main() -> int:
                                        pipe.image_encoder) for p in m.parameters())
     log(f"pipeline: full I2VGen-XL geometry, bf16, random weights (seed {args.seed}), "
         f"built in {t_build:.1f} s; {n_params / 1e9:.3f} B parameters")
-    videos = [synthetic_video(rng, nf, size) for _ in range(3)]
+    videos = [tt.synthetic_video(rng, nf, size) for _ in range(3)]
     lat = size // pipe.vae_scale_factor
     masks = np.zeros((2, nf, lat, lat), np.float32)
     masks[0, :, lat // 8: lat // 2, lat // 8: lat // 2] = 1.0
@@ -823,15 +1033,23 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    # 7. kernel phases at every shape the paths launched (+ ragged cases)
+    # 7. both CLIs at the templates' 1280 x 720
+    cli = cli_phase(args.steps, args.seed)
+
+    # 8. kernel phases at every shape the paths launched (+ ragged cases)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     s8_shapes = dict(int8["shapes"]["s8_matmul"])
     for sig in full_shapes["s8_matmul"]:
         s8_shapes.setdefault(sig, 0)
+    attn_shapes = {}
+    for name in ("flash_attention", "frame_attention"):
+        attn_shapes[name] = dict(bf16["shapes"][name])
+        for sig in cli["shapes"][name]:
+            attn_shapes[name].setdefault(sig, 0)
     plans = (
-        ("flash_attention", flash_phase, bf16["shapes"]["flash_attention"],
+        ("flash_attention", flash_phase, attn_shapes["flash_attention"],
          [(1, 5, 14400, 14400, 64, "torch.bfloat16")]),
-        ("frame_attention", frame_phase, bf16["shapes"]["frame_attention"], []),
+        ("frame_attention", frame_phase, attn_shapes["frame_attention"], []),
         ("s8_matmul", s8_phase, s8_shapes,
          [(17, 36, 9, "torch.bfloat16"), (17, 36, 9, "torch.float32")]),
     )
@@ -842,6 +1060,7 @@ def main() -> int:
             b_ms, basis = bound(ph)
             row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
+                       cli_launches=cli["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
@@ -864,7 +1083,7 @@ def main() -> int:
                 f"plain_ms {ph['plain_ms']:.4f} "
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
-                f"main-path launches {row['launches']}{extra}")
+                f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
             if not ph.get("old_err", 0.0) <= ph["tol"]:
@@ -874,7 +1093,6 @@ def main() -> int:
 
     # each kernel's device time in one composite step of the path that ran
     # it: composite-only launches at each shape times that shape's kernel time
-    path_of = {"flash_attention": bf16, "frame_attention": bf16, "s8_matmul": int8}
     per_step_ms = {}
     for name, path in (("bf16", bf16), ("int8-mixed", int8)):
         per_step_ms[name] = {}
@@ -893,6 +1111,17 @@ def main() -> int:
             f"steady step: { {k: round(v / steady_ms, 4) for k, v in per_step_ms[name].items()} }"
             f", the rest {rest:.1f} ms ({rest / steady_ms:.4f})")
 
+    # and in the whole CLI run: its launches at each shape times that shape's kernel time
+    cli_kernel_s = {}
+    for kname in ("flash_attention", "frame_attention"):
+        ms_of = {tuple(r["shape"]): r["ms"] for r in table if r["kernel"] == kname}
+        cli_kernel_s[kname] = sum(n * ms_of[sig] for sig, n in cli["shapes"][kname].items()
+                                  if sig in ms_of) / 1e3
+    cli["kernel_s"] = cli_kernel_s
+    log(f"cli: kernel device time over both CLIs (launches x phase kernel_ms): "
+        f"{ {k: round(v, 3) for k, v in cli_kernel_s.items()} } s of {cli['total_s']:.1f} s "
+        f"wall ({ {k: round(v / cli['total_s'], 4) for k, v in cli_kernel_s.items()} })")
+
     host = k3_host_costs(gen)
     log(f"K3 host cost per launch at [4096, 1280, 1280] -> bf16: encoding the two TMA tensor "
         f"maps {host['encode_us']:.2f} us (mean of 10000); the whole s8_matmul call "
@@ -907,18 +1136,25 @@ def main() -> int:
             s=full_secs, launches=full_launch, peak_gib=full_peak),
             kernel_ms_per_step=per_step_ms, reference=dict(
                 fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),
-            int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles, phases=table), f,
-            indent=1)
+            int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles,
+            cli={k: v for k, v in cli.items() if k != "shapes"}, phases=table), f, indent=1)
 
-    # one row per kernel, from the main path that launched it
+    # one row per kernel, from this slice's path that launched it (K1, K2:
+    # the CLIs at 1280 x 720; K3: the int8-mixed path), with the launches of
+    # every path; the row's times at the shape that path spends most on
+    by_path = {"bf16": bf16["launches"], "int8-mixed": int8["launches"],
+               "int8-full-step": full_launch, "cli": cli["launches"]}
+    count_key = {"flash_attention": "cli_launches", "frame_attention": "cli_launches",
+                 "s8_matmul": "launches"}
     kernels = []
     for name, meta in KERNELS.items():
-        path = path_of[name]
-        rows = [r for r in table if r["kernel"] == name and r["launches"] > 0]
-        head = max(rows, key=lambda r: r["bound_ms"] * r["launches"])
+        key = count_key[name]
+        rows = [r for r in table if r["kernel"] == name and r[key] > 0]
+        head = max(rows, key=lambda r: r["bound_ms"] * r[key])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=path["launches"][name],
+            launches=cli["launches"][name] if key == "cli_launches" else int8["launches"][name],
+            launches_by_path={p: n[name] for p, n in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in table if r["kernel"] == name),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"]))

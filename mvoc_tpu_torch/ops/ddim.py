@@ -141,15 +141,26 @@ class DDIM:
         return x0, eps
 
     def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
-             num_inference_steps: int) -> torch.Tensor:
-        """diffusers DDIMScheduler.step(...).prev_sample at eta = 0 (the
-        composite sampler's setting; eta > 0 is not ported)."""
+             num_inference_steps: int, eta: float = 0.0,
+             noise: torch.Tensor | None = None) -> torch.Tensor:
+        """diffusers DDIMScheduler.step(...).prev_sample.  eta > 0 adds
+        `noise` (drawn by the caller) scaled by eta times the DDIM sigma."""
         t = int(timestep)
         prev_t = t - self.config.num_train_timesteps // num_inference_steps
         a_t = self._alpha_at(t, self.final_alpha_cumprod)
         a_prev = self._alpha_at(prev_t, self.final_alpha_cumprod)
         x0, eps = self._predict_x0_eps(sample, model_output, a_t)
-        prev = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(np.float32(1.0) - a_prev)) * eps
+        std = np.float32(0.0)
+        if eta > 0.0:
+            variance = (np.float32(1.0) - a_prev) / (np.float32(1.0) - a_t) * (
+                np.float32(1.0) - a_t / a_prev)
+            std = np.float32(eta) * np.sqrt(variance)
+        direction = float(np.sqrt(np.float32(1.0) - a_prev - std**2))
+        prev = float(np.sqrt(a_prev)) * x0 + direction * eps
+        if eta > 0.0:
+            if noise is None:
+                raise ValueError("eta > 0 requires noise")
+            prev = prev + float(std) * noise.float()
         return prev.to(sample.dtype)
 
     def inverse_step(self, model_output: torch.Tensor, timestep: int,

@@ -1,4 +1,5 @@
-"""Inversion and PnP composite loops (counterpart of mvoc_tpu/pipeline/core.py).
+"""Inversion, plain sampling and PnP composite loops (counterpart of
+mvoc_tpu/pipeline/core.py).
 
 The JAX package compiles each loop into one `lax.scan`; here each is a
 Python step loop over an eager UNet, under `torch.inference_mode()`.
@@ -65,6 +66,28 @@ def ddim_inversion_core(unet, ddim: DDIM, x0_latents: torch.Tensor, cond: UNetCo
         latents = ddim.inverse_step(eps, int(t), latents, num_inference_steps)
         traj.append(latents)
     return torch.stack(traj)
+
+
+@torch.inference_mode()
+def ddim_sampling_core(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetConditioning,
+                       timesteps, num_inference_steps: int, guidance_scale: float,
+                       eta: float = 0.0, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain DDIM sampling from `latents` [F, h, w, C] over `timesteps`
+    (descending, possibly a truncated schedule: the reconstruction path
+    starts at ddim_init_latents_t_idx).  cond has batch 2 ([uncond, cond])
+    when guidance_scale > 1, else 1.  eta > 0 takes `noise` [S', F, h, w, C],
+    one slice per step."""
+    do_cfg = guidance_scale > 1.0
+    n_branches = 2 if do_cfg else 1
+    if eta > 0.0 and noise is None:
+        raise ValueError("eta > 0 requires noise")
+    for i, t in enumerate(np.asarray(timesteps)):
+        inp = latents[None].expand((n_branches,) + tuple(latents.shape))
+        eps = unet(inp, int(t), **cond.unet_kwargs())
+        eps = eps[0] + guidance_scale * (eps[1] - eps[0]) if do_cfg else eps[0]
+        latents = ddim.step(eps, int(t), latents, num_inference_steps, eta=eta,
+                            noise=noise[i] if eta > 0.0 else None)
+    return latents
 
 
 @dataclasses.dataclass(frozen=True)

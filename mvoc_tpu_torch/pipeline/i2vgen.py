@@ -1,6 +1,11 @@
 """I2VGen-XL pipeline in PyTorch: host orchestration over the step loops
-(counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices
-invert -> sample_composite and the int8 mode, enable_int8).
+(counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices ported so
+far: invert, sample (the reconstruction path), generate_background,
+sample_composite and the int8 mode, enable_int8).
+
+The JAX package's extension keywords are accepted at their exact defaults
+(what its composite CLI always passes); any other value of a mode that is
+not ported yet raises NotImplementedError naming its ROADMAP.md item.
 
 The modules hold their own weights.  Every random draw of an entry point
 comes from one explicit `torch.Generator` seeded from `seed`, on the
@@ -29,6 +34,23 @@ from mvoc_tpu_torch.pipeline import core
 from mvoc_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+# the JAX package's extension keywords whose modes are not ported yet:
+# name -> (the exact default, ROADMAP.md §1 item)
+UNPORTED_KEYWORDS = {
+    "encoder_reuse_interval": (1, 4), "encoder_reuse_depth": (None, 4), "deep_reuse": (False, 4),
+    "pab_interval": (1, 4), "capture_reuse_interval": (1, 4), "capture_reuse_deep": (False, 4),
+}
+
+
+def refuse_unported(**values) -> None:
+    """Raise NotImplementedError for an extension keyword away from its
+    default (UNPORTED_KEYWORDS)."""
+    for name, value in values.items():
+        default, item = UNPORTED_KEYWORDS[name]
+        if value != default:
+            raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP.md §1 item "
+                                      f"{item}); mvoc_tpu_torch runs only {name}={default!r}")
 
 
 class I2VGenXLPipeline:
@@ -159,6 +181,10 @@ class I2VGenXLPipeline:
         img = torch.cat([self.vae.decode(z[i:i + step]) for i in range(0, z.shape[0], step)])
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0).cpu().numpy()
 
+    def enable_vae_tiling(self, tile_latent: int = 64, overlap_latent: int = 8) -> None:
+        """Spatially tiled VAE decode: not ported yet."""
+        raise NotImplementedError("enable_vae_tiling is not ported yet (ROADMAP.md §1 item 6)")
+
     def prepare_latents(self, num_frames: int, height: int, width: int,
                         generator: torch.Generator) -> torch.Tensor:
         shape = (num_frames, height // self.vae_scale_factor, width // self.vae_scale_factor,
@@ -202,9 +228,14 @@ class I2VGenXLPipeline:
                target_fps: int = 8, num_frames: int = 16, num_inference_steps: int = 500,
                guidance_scale: float = 1.0, clip_skip: int = 1, seed: int = 8888,
                output_dir: Optional[str] = None, prompt_embeds=None,
-               negative_prompt_embeds=None) -> tuple[np.ndarray, np.ndarray]:
+               negative_prompt_embeds=None, encoder_reuse_interval: int = 1,
+               encoder_reuse_depth: Optional[int] = None,
+               deep_reuse: bool = False) -> tuple[np.ndarray, np.ndarray]:
         """DDIM-invert a video.  Returns (timesteps ascending, trajectory
-        [S, F, h, w, C]) and writes the trajectory store when output_dir."""
+        [S, F, h, w, C]) and writes the trajectory store when output_dir.
+        The encoder-reuse keywords run only at their exact defaults."""
+        refuse_unported(encoder_reuse_interval=encoder_reuse_interval,
+                        encoder_reuse_depth=encoder_reuse_depth, deep_reuse=deep_reuse)
         self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
                           negative_prompt=negative_prompt,
                           negative_prompt_embeds=negative_prompt_embeds)
@@ -231,10 +262,65 @@ class I2VGenXLPipeline:
         if output_dir is not None:
             meta = dict(n_steps=num_inference_steps, guidance_scale=guidance_scale,
                         num_frames=num_frames, height=height, width=width, prompt=prompt,
-                        seed=seed, target_fps=target_fps)
+                        seed=seed, target_fps=target_fps,
+                        encoder_reuse_interval=encoder_reuse_interval)
             TrajectoryStore(output_dir).save(ts, trajectory, meta=meta)
             logger.info("saved trajectory (%d steps) to %s", len(ts), output_dir)
         return ts, trajectory
+
+    # -- entry point D: plain sampling / reconstruction -------------------------
+
+    def sample(self, image: Image.Image, prompt: str = "", negative_prompt: str = "",
+               height: int = 720, width: int = 1280, target_fps: int = 8, num_frames: int = 16,
+               num_inference_steps: int = 50, guidance_scale: float = 9.0, clip_skip: int = 1,
+               ddim_init_latents_t_idx: int = 0, latents=None, seed: int = 6,
+               decode: bool = True, decode_chunk_size: Optional[int] = 1, prompt_embeds=None,
+               negative_prompt_embeds=None):
+        """Image-to-video sampling; with `latents` ([F, h, w, C], the
+        inverted latents at the schedule's step ddim_init_latents_t_idx) it
+        is the reference's DDIM reconstruction path (inverse.py:79-108).
+        Draws (the start latents when not given, then the first frame's VAE
+        sample) come from one generator seeded from `seed`.  Returns the
+        video [F, H, W, 3] in [0, 1], or the final latents if not decode."""
+        self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
+                          negative_prompt=negative_prompt,
+                          negative_prompt_embeds=negative_prompt_embeds)
+        gen = self._generator(seed)
+        do_cfg = guidance_scale > 1.0
+        if latents is None:
+            latents = self.prepare_latents(num_frames, height, width, gen)
+        latents = torch.as_tensor(latents, device=self.device).float()
+        pe, ne = self.encode_prompt(prompt, negative_prompt, do_cfg=do_cfg, clip_skip=clip_skip,
+                                    prompt_embeds=prompt_embeds,
+                                    negative_prompt_embeds=negative_prompt_embeds)
+        text = torch.cat([ne, pe]) if do_cfg else pe
+        img_emb = self.encode_image(image, width)
+        img_emb = img_emb[:, None].expand(1, num_frames, img_emb.shape[-1])
+        if do_cfg:
+            img_emb = torch.cat([torch.zeros_like(img_emb), img_emb])
+        img_lat = self.encode_first_frame_latents(image, height, width, num_frames, generator=gen)
+        img_lat = img_lat[None].expand((2 if do_cfg else 1,) + tuple(img_lat.shape))
+        cond = self._stack_cond(text, img_lat, img_lat, img_emb, target_fps)
+        run_ts = sampling_timesteps(self.scheduler_config,
+                                    num_inference_steps)[ddim_init_latents_t_idx:]
+        final = core.ddim_sampling_core(self.unet, self.ddim, latents, cond, run_ts,
+                                        num_inference_steps, float(guidance_scale))
+        if not decode:
+            return final
+        return self.decode_latents(final, decode_chunk_size=decode_chunk_size)
+
+    def generate_background(self, prompt: str, negative_prompt: str = "", height: int = 720,
+                            width: int = 1280, num_frames: int = 16,
+                            num_inference_steps: int = 50, guidance_scale: float = 9.0,
+                            target_fps: int = 8, seed: int = 6):
+        """Text-to-video background: image-to-video sampling conditioned on a
+        null (black) first frame (the reference's dormant
+        `generated_bacground*` config block, group_composite/template.yaml)."""
+        black = Image.new("RGB", (width, height), (0, 0, 0))
+        return self.sample(black, prompt=prompt, negative_prompt=negative_prompt, height=height,
+                           width=width, target_fps=target_fps, num_frames=num_frames,
+                           num_inference_steps=num_inference_steps,
+                           guidance_scale=guidance_scale, seed=seed)
 
     # -- entry point B: PnP composite sampling ----------------------------------
 
@@ -270,9 +356,21 @@ class I2VGenXLPipeline:
         inject_background: bool = True, strict_reference_crop: bool = True,
         two_pass=False, pnp_f_t: float = 0.8, pnp_spatial_attn_t: float = 0.8,
         pnp_temp_attn_t: float = 0.8, seed: int = 6, prompt_embeds=None,
-        negative_prompt_embeds=None, ddim_inv_prompt_embeds=None):
+        negative_prompt_embeds=None, ddim_inv_prompt_embeds=None,
+        encoder_reuse_interval: int = 1, encoder_reuse_depth: Optional[int] = None,
+        pab_interval: int = 1, capture_reuse_interval: int = 1,
+        capture_reuse_deep: bool = False):
         """Host-side preparation of sample_composite.  Returns (init_latents,
-        cond, sched, masks_soft, pyr_bin, pyr_soft, capture_weights)."""
+        cond, sched, masks_soft, pyr_bin, pyr_soft, capture_weights).  The
+        reuse and broadcast keywords run only at their exact defaults, and
+        two_pass only as False (fused) or "stream"."""
+        refuse_unported(encoder_reuse_interval=encoder_reuse_interval,
+                        encoder_reuse_depth=encoder_reuse_depth, pab_interval=pab_interval,
+                        capture_reuse_interval=capture_reuse_interval,
+                        capture_reuse_deep=capture_reuse_deep)
+        if two_pass is True:
+            raise NotImplementedError("two_pass=True is not ported yet (ROADMAP.md §1 item 3); "
+                                      "mvoc_tpu_torch runs two_pass=False (fused) or 'stream'")
         self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
                           negative_prompt=negative_prompt,
                           negative_prompt_embeds=negative_prompt_embeds)

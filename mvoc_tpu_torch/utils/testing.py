@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -137,6 +139,83 @@ def tiny_frames(n: int = TINY_FRAMES, size: int = TINY_HW, seed: int = 0):
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
     return [Image.fromarray(np.roll(base, shift=i, axis=1)) for i in range(n)]
+
+
+def synthetic_video(rng, frames: int, width: int, height: Optional[int] = None):
+    """A seeded smooth colour field with a bright square moving sideways
+    (PIL frames, width x height)."""
+    from PIL import Image
+
+    height = height or width
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    yy, xx = yy / height, xx / width
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    base = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (xx + yy) + p) for p in phase], -1)
+    out = []
+    for i in range(frames):
+        img = base.copy()
+        x0 = (width // 8 + i * width // (4 * frames)) % (width - width // 4)
+        img[height // 3: height // 3 + height // 6, x0: x0 + width // 6] = 1.0
+        out.append(Image.fromarray((img * 255).astype(np.uint8)))
+    return out
+
+
+DEMO_VIDEOS = ("bg", "obj1", "obj2")
+
+
+def write_demo_tree(root: str, width: int, height: int, n_frames: int, steps: int,
+                    seed: int = 0) -> dict:
+    """A demo tree for the CLIs under `root`, laid out like the reference's
+    data directory: three synthetic videos (bg, obj1, obj2) as PNG frame
+    directories at width x height, an edited first frame, two rectangle
+    masks authored at width x height, and the two group JSONs over the
+    shipped templates: inversion of the three videos in `steps` steps with
+    the reconstruction round trip on for bg (from the schedule's step 1),
+    and one composite of bg with both objects in `steps` steps from step 1,
+    noise fusion at its first step.  Returns the JSON paths
+    {"inversion": ..., "composite": ...}."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    demo = os.path.join(root, "demo")
+    for name in DEMO_VIDEOS:
+        d = os.path.join(demo, name)
+        os.makedirs(d, exist_ok=True)
+        for i, img in enumerate(synthetic_video(rng, n_frames, width, height)):
+            img.save(os.path.join(d, f"{i:05d}.png"))
+    synthetic_video(rng, 1, width, height)[0].save(os.path.join(demo, "edited_first_frame.png"))
+    os.makedirs(os.path.join(demo, "masks"), exist_ok=True)
+    boxes = ((width // 8, height // 8, width // 2, height // 2),
+             (width // 2, height // 2, 7 * width // 8, 7 * height // 8))
+    for j, (x0, y0, x1, y1) in enumerate(boxes):
+        arr = np.zeros((height, width), np.uint8)
+        arr[y0:y1, x0:x1] = 255
+        Image.fromarray(arr, mode="L").save(os.path.join(demo, "masks", f"obj{j + 1}.png"))
+    size = [width, height]
+    inversion = [dict(active=True, video_name=name, data_dir=root, image_size=size,
+                      n_frames=n_frames, inverse_config=dict(n_steps=steps),
+                      recon_config=dict(enable_recon=name == "bg", n_steps=steps,
+                                        ddim_init_latents_t_idx=1))
+                 for name in DEMO_VIDEOS]
+    latents = "inversions/i2vgen-xl/{}/ddim_latents"
+    composite = [dict(
+        active=True, task_name="demo", video_name="bg", data_dir=root, image_size=size,
+        n_frames=n_frames, edited_first_frame_path="demo/edited_first_frame.png",
+        editing_prompt="a red boat and a surfer on the sea", edited_video_name="boat and surfer",
+        n_steps=steps, ddim_init_latents_t_idx=1, fusion_step=[0, 1],
+        obj_mask_path=["demo/masks/obj1.png", "demo/masks/obj2.png"],
+        obj_ddim_latents_path=[latents.format("obj1"), latents.format("obj2")],
+        bg_ddim_latents_path=latents.format("bg"),
+        edited_contorl_frame_path_main="demo/bg", edited_contorl_frame_path_background="demo/bg",
+        edited_contorl_frame_path=["demo/obj1", "demo/obj2"])]
+    out = {}
+    for name, entries in (("inversion", inversion), ("composite", composite)):
+        out[name] = os.path.join(root, f"group_{name}.json")
+        with open(out[name], "w") as f:
+            json.dump(entries, f, indent=1)
+    return out
 
 
 class ActivationTape:

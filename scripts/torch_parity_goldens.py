@@ -15,6 +15,11 @@ limit, so this script runs the JAX package once and stores, as numpy:
   * a 3-step DDIM inversion (inputs and trajectory);
   * a 3-step PnP composite (fused): the inputs JAX's own _prepare_composite
     built from seeded frames, masks and trajectory stores, and the result;
+  * 3 steps of plain DDIM sampling (ddim_sampling_core: cfg 3.0, no cfg,
+    and eta 0.5 with the noise passed in);
+  * at a 5 x 9 latent (halvings 3 x 5, 2 x 3, 1 x 2, the 720p geometry in
+    miniature): a UNet forward, and one fused composite step with its mask
+    pyramid on inputs JAX's _prepare_composite built;
   * the int8 path (`enable_int8(mode="full")`'s selection,
     `default_unet_predicate`): the quantized kernels (int8 data and scales),
     the plain forward in both layouts, the inversion and the fused
@@ -54,6 +59,7 @@ from torch_support import golden_sources_digest, noisy_params  # noqa: E402
 F, HW, LAT, D = 2, 16, 8, 16
 N_OBJ = 2
 N_STEPS = 4  # 4-step schedule, t_idx 1 -> 3 composite steps
+ODD_LAT = (5, 9)  # a non-square latent whose halvings go odd, like 90 x 160 at 720p
 
 
 def unet_inputs(b, seed):
@@ -299,6 +305,88 @@ def main() -> int:
         jax.effects_barrier()
     tape.store(out, "composite")
     print("composite: done", flush=True)
+
+    # plain DDIM sampling (the reconstruction path): 3 steps with cfg 3.0,
+    # without cfg, and with eta > 0 and the noise passed in
+    from mvoc_tpu.ops.ddim import sampling_timesteps
+
+    r = np.random.default_rng(11)
+    samp = dict(latents=r.standard_normal((F, LAT, LAT, 4)).astype(np.float32),
+                encoder_hidden_states=r.standard_normal((2, 7, D)).astype(np.float32),
+                image_latents_first=r.standard_normal((2, F, LAT, LAT, 4)).astype(np.float32),
+                image_latents=r.standard_normal((2, F, LAT, LAT, 4)).astype(np.float32),
+                image_embeddings=r.standard_normal((2, F, D)).astype(np.float32),
+                fps=np.array([8, 8]),
+                noise=r.standard_normal((3, F, LAT, LAT, 4)).astype(np.float32),
+                timesteps=sampling_timesteps(SchedulerConfig(), 50)[10:13])
+    for k, v in samp.items():
+        out[f"sample/{k}"] = v
+    cond2 = core.UNetConditioning(**{f.name: jnp.asarray(samp[f.name])
+                                     for f in dataclasses.fields(core.UNetConditioning)})
+    cond1 = jax.tree.map(lambda a: a[1:], cond2)
+    for case, c, cfg, eta in (("cfg", cond2, 3.0, 0.0), ("nocfg", cond1, 1.0, 0.0),
+                              ("eta", cond2, 3.0, 0.5)):
+        out[f"sample/{case}_out"] = np.asarray(core.ddim_sampling_core(
+            pipe._unet_apply, pipe.ddim, params, jnp.asarray(samp["latents"]), c,
+            jnp.asarray(samp["timesteps"]), 50, cfg, eta=eta,
+            noise=jnp.asarray(samp["noise"]) if eta > 0 else None))
+    print("sampling: done", flush=True)
+
+    # the 720p geometry in miniature: a 5 x 9 latent whose halvings go odd
+    # (5x9 -> 3x5 -> 2x3 -> 1x2): one UNet forward, and one fused composite
+    # step with its mask pyramid, on inputs JAX's _prepare_composite built
+    OH, OW = ODD_LAT
+    r = np.random.default_rng(12)
+    odd_in = dict(sample=r.standard_normal((2, F, OH, OW, 4)).astype(np.float32),
+                  timestep=np.array([981, 981]), fps=np.array([8, 8]),
+                  image_latents_first=r.standard_normal((2, F, OH, OW, 4)).astype(np.float32),
+                  image_latents=r.standard_normal((2, F, OH, OW, 4)).astype(np.float32),
+                  image_embeddings=r.standard_normal((2, F, D)).astype(np.float32),
+                  encoder_hidden_states=r.standard_normal((2, 7, D)).astype(np.float32))
+    for k, v in odd_in.items():
+        out[f"odd/unet/{k}"] = v
+    out["odd/unet/out"] = np.asarray(jax.jit(unet.apply)(params, **odd_in))
+    with tempfile.TemporaryDirectory() as root:
+        its = inversion_timesteps(SchedulerConfig(), N_STEPS)
+        stores = []
+        for j in range(N_OBJ + 1):
+            path = os.path.join(root, f"v{j}")
+            TrajectoryStore(path, prefer_native=False).save(
+                its, r.standard_normal((len(its), F, OH, OW, 4)).astype(np.float32))
+            stores.append(TrajectoryStore(path))
+        from PIL import Image
+
+        frames = [[Image.fromarray(r.integers(0, 255, (2 * OH, 2 * OW, 3), dtype=np.uint8))
+                   for _ in range(F)] for _ in range(N_OBJ + 2)]
+        o_binary = np.zeros((N_OBJ, F, OH, OW), np.float32)
+        o_binary[0, :, : OH // 2 + 1] = 1.0
+        o_binary[1, :, :, OW // 2:] = 1.0
+        o_soft = np.clip(o_binary * 0.7 + 0.2, 0, 1).astype(np.float32)
+        init, ccond, sched, ms, cpb, cps, _ = pipe._prepare_composite(
+            "a cat", frames[0][0], frames[0], frames[1], frames[2:], o_soft, o_binary,
+            stores[0], stores[1:], height=2 * OH, width=2 * OW, num_frames=F,
+            num_inference_steps=N_STEPS, guidance_scale=3.0, fusion_steps=(0, 1), seed=4)
+    # the schedule cut to its first run step (t = 501: injection and fusion on)
+    sched = dataclasses.replace(sched, **{
+        f.name: getattr(sched, f.name)[:1] for f in dataclasses.fields(sched)
+        if f.name != "obj_fusion_lat"})
+    odd = core.pnp_composite_core(
+        pipe._unet_apply, pipe.ddim, params, init, ccond, sched, ms, cpb, cps,
+        num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
+        two_pass=False)
+    out["odd/composite/init"] = np.asarray(init)
+    for f in dataclasses.fields(core.UNetConditioning):
+        out[f"odd/composite/cond/{f.name}"] = np.asarray(getattr(ccond, f.name))
+    for f in dataclasses.fields(core.CompositeSchedule):
+        out[f"odd/composite/sched/{f.name}"] = np.asarray(getattr(sched, f.name))
+    out["odd/composite/masks_soft"] = np.asarray(ms)
+    out["odd/composite/masks_binary"] = o_binary
+    for (h, w), v in cpb.items():
+        out[f"odd/composite/pyr_bin/{h}x{w}"] = np.asarray(v)
+    for (h, w), v in cps.items():
+        out[f"odd/composite/pyr_soft/{h}x{w}"] = np.asarray(v)
+    out["odd/composite/fused_out"] = np.asarray(odd)
+    print("odd geometry: done", flush=True)
 
     out["sources_digest"] = np.array(golden_sources_digest())
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

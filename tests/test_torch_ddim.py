@@ -33,3 +33,18 @@ def test_step_inverse_step_add_noise_match_jax(kw):
                                    np.asarray(jd.inverse_step(eps, t, x, 50)), atol=2e-6)
         np.testing.assert_allclose(td.add_noise(xt, et, t).numpy(),
                                    np.asarray(jd.add_noise(x, eps, t)), atol=2e-6)
+
+
+@pytest.mark.parametrize("eta", [0.0, 0.5, 1.0])
+def test_step_with_eta_matches_jax(eta):
+    """DDIM's stochastic step: eta times the DDIM sigma, the noise passed in."""
+    rng = np.random.default_rng(1)
+    x, eps, noise = (rng.standard_normal((2, 4, 4, 4)).astype(np.float32) for _ in range(3))
+    jd, td = jddim.DDIM(jddim.SchedulerConfig()), tddim.DDIM(tddim.SchedulerConfig())
+    for t in (981, 501, 21):
+        want = np.asarray(jd.step(eps, t, x, 50, eta=eta, noise=noise if eta else None))
+        got = td.step(torch.from_numpy(eps), t, torch.from_numpy(x), 50, eta=eta,
+                      noise=torch.from_numpy(noise) if eta else None)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+    with pytest.raises(ValueError, match="noise"):
+        td.step(torch.from_numpy(eps), 501, torch.from_numpy(x), 50, eta=0.5)

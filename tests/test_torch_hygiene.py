@@ -44,3 +44,13 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_native_codec_is_the_ports_own():
+    """io/native.py builds and loads csrc/traj_codec.cpp of the port, never
+    the JAX package's native/ library."""
+    from mvoc_tpu_torch.io import native
+
+    src = pathlib.Path(native.SOURCE).resolve()
+    assert src.is_relative_to(ROOT / "mvoc_tpu_torch" / "csrc") and src.exists()
+    assert not pathlib.Path(native.library_path()).resolve().is_relative_to(ROOT / "native")

@@ -11,8 +11,13 @@ same (noise-replaced) weights and the same inputs:
   the 3-step composite, fused and stream, against JAX's int8 inversion and
   fused composite, replaying the JAX runs' tapes of int8 activations (see
   test_torch_unet.py for why);
+* 3 steps of plain DDIM sampling (ddim_sampling_core, the reconstruction
+  path: cfg, no cfg, eta > 0 with the noise passed in) against JAX's;
+* at a 5 x 9 latent whose halvings go odd (the 720p geometry in
+  miniature): a UNet forward and one fused composite step with its mask
+  pyramid, against JAX's;
 * the port's tiny invert -> sample_composite end to end on the CPU, in
-  fp32 and in int8;
+  fp32 and in int8, and sample / generate_background;
 * the entry points refuse to fall back to the CPU without CUDA.
 
 The JAX side of the inversion and composite cores (and the tiny pipeline's
@@ -187,8 +192,8 @@ def test_inversion_core_3_steps(goldens, tpipe):
     _check_core(got.numpy(), goldens["invert/trajectory"])
 
 
-def _pyramid(goldens, name):
-    prefix = f"composite/{name}/"
+def _pyramid(goldens, name, root="composite"):
+    prefix = f"{root}/{name}/"
     return {tuple(int(n) for n in k[len(prefix):].split("x")): torch.from_numpy(v)
             for k, v in goldens.items() if k.startswith(prefix)}
 
@@ -279,6 +284,86 @@ def test_int8_composite_core_3_steps(goldens, tpipe, int8_unet, two_pass):
         got = _composite(goldens, tpipe, int8_unet, two_pass)
     check_int8_replay(tape)
     check_int8(got, goldens["composite/int8_fused_out"], goldens["composite/fused_out"])
+
+
+@pytest.mark.parametrize("case", ["cfg", "nocfg", "eta"])
+def test_sampling_core_3_steps(goldens, tpipe, case):
+    """ddim_sampling_core (the reconstruction path) against JAX's: cfg 3.0,
+    no cfg (batch 1), and eta 0.5 with the noise passed in; tolerance
+    CORE_REL of max |JAX|, as the inversion's."""
+    cond = _cond(goldens, "sample")
+    if case == "nocfg":
+        cond = cond.slice(1, 2)
+    eta = 0.5 if case == "eta" else 0.0
+    got = tcore.ddim_sampling_core(
+        tpipe.unet, tpipe.ddim, torch.from_numpy(goldens["sample/latents"]), cond,
+        goldens["sample/timesteps"], 50, 1.0 if case == "nocfg" else 3.0, eta=eta,
+        noise=torch.from_numpy(goldens["sample/noise"]) if eta else None)
+    _check_core(got.numpy(), goldens[f"sample/{case}_out"])
+
+
+def test_odd_geometry_unet_forward(goldens, tpipe):
+    """A 5 x 9 latent whose halvings go odd (3 x 5, 2 x 3, 1 x 2: the
+    90 x 160 latent of 720p in miniature), so every up block meets a ragged
+    skip; tolerance CORE_REL of max |JAX|."""
+    x = {k: torch.from_numpy(goldens[f"odd/unet/{k}"]) for k in (
+        "sample", "fps", "image_latents_first", "image_latents", "image_embeddings",
+        "encoder_hidden_states")}
+    with torch.no_grad():
+        got = tpipe.unet(x.pop("sample"), int(goldens["odd/unet/timestep"][0]), **x)
+    assert got.shape == (2, F, 5, 9, 4)
+    _check_core(got.numpy(), goldens["odd/unet/out"])
+
+
+def test_odd_geometry_composite_step(goldens, tpipe):
+    """One fused composite step at the 5 x 9 latent, on the inputs JAX's
+    _prepare_composite built; the port's own mask pyramid at the injection
+    resolutions of that latent equals JAX's bitwise."""
+    pre = "odd/composite"
+    pb, ps = _pyramid(goldens, "pyr_bin", pre), _pyramid(goldens, "pyr_soft", pre)
+    res = tpipe._injection_resolutions(5, 9)
+    assert sorted(res) == sorted(pb) and (3, 5) in res and (2, 3) in res
+    for name, pyr, masks in (("binary", pb, goldens[f"{pre}/masks_binary"]),
+                             ("soft", ps, goldens[f"{pre}/masks_soft"])):
+        own = tp.build_mask_pyramid(masks, res)
+        for k, v in pyr.items():
+            np.testing.assert_array_equal(np.asarray(own[k]), v.numpy(), err_msg=f"{name} {k}")
+    s = lambda name: goldens[f"{pre}/sched/{name}"]
+    sched = tcore.CompositeSchedule(
+        bg_traj=torch.from_numpy(s("bg_traj")), obj_traj=torch.from_numpy(s("obj_traj")),
+        obj_fusion_lat=torch.from_numpy(s("obj_fusion_lat")), gate_spatial=s("gate_spatial"),
+        gate_temporal=s("gate_temporal"), gate_conv=s("gate_conv"),
+        fusion_mask=s("fusion_mask"), timesteps=s("timesteps"))
+    assert len(sched.timesteps) == 1 and sched.fusion_mask[0] and sched.gate_spatial[0]
+    got = tcore.pnp_composite_core(
+        tpipe.unet, tpipe.ddim, torch.from_numpy(goldens[f"{pre}/init"]),
+        _cond(goldens, f"{pre}/cond"), sched, torch.from_numpy(goldens[f"{pre}/masks_soft"]),
+        pb, ps, num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3)
+    _check_core(got.numpy(), goldens[f"{pre}/fused_out"])
+
+
+def test_port_sample_and_generate_background(tmp_path):
+    """The reconstruction entry point on the CPU: the inverted latents at the
+    schedule's step t_idx run the rest of the schedule; the result is a
+    finite video in [0, 1], the same from the same seed, and t_idx = N
+    (nothing left to run) decodes the start latents unchanged."""
+    pipe = tt.build_tiny_pipeline(device="cpu", natural=True)
+    frames = tt.tiny_frames(seed=3)
+    ts, traj = pipe.invert(frames, height=HW, width=HW, num_frames=F,
+                           num_inference_steps=N_STEPS, output_dir=str(tmp_path))
+    start = TrajectoryStore(str(tmp_path)).load_at_t(int(ts[-2]))  # = sampling step 1
+    kw = dict(height=HW, width=HW, num_frames=F, num_inference_steps=N_STEPS,
+              guidance_scale=3.0, ddim_init_latents_t_idx=1, seed=2)
+    video = pipe.sample(frames[0], latents=torch.from_numpy(start), **kw)
+    assert video.shape == (F, HW, HW, 3) and np.isfinite(video).all()
+    assert 0.0 <= video.min() and video.max() <= 1.0
+    np.testing.assert_array_equal(video, pipe.sample(frames[0], latents=start, **kw))
+    kw["ddim_init_latents_t_idx"] = N_STEPS
+    final = pipe.sample(frames[0], latents=start, decode=False, **kw)
+    np.testing.assert_array_equal(final.numpy(), start)
+    bg = pipe.generate_background("a beach", height=HW, width=HW, num_frames=F,
+                                  num_inference_steps=2)
+    assert bg.shape == (F, HW, HW, 3) and np.isfinite(bg).all()
 
 
 def _invert_then_composite(tmp_path, int8: bool):
