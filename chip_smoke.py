@@ -1,13 +1,17 @@
 """On-card smoke run of mvoc_tpu_torch: builds the CUDA kernels, drives the
 main paths (invert -> stream composite -> decode in bf16, then the same in
-int8, then both CLIs at the templates' 1280 x 720) at full I2VGen-XL width on
-one CUDA card, and holds every kernel against its plain PyTorch version at
-every shape those runs launched it with.
+int8, then a full-width diffusers checkpoint written, loaded and verified,
+then both CLIs from that checkpoint at the templates' 1280 x 720 and a tiled
+decode of their composite) at full I2VGen-XL width on one CUDA card, and
+holds every kernel against its plain PyTorch version at every shape those
+runs launched it with.
 
     python3 chip_smoke.py [--steps 3] [--seed 0]
 
 Phases, in order (each failure ends the run with a non-zero exit):
-  0. the card (nvidia-smi name and power limit), torch / CUDA versions, TF32;
+  0. the card (nvidia-smi name and power limit), torch / CUDA versions, TF32,
+     and whether safetensors, transformers, regex and ftfy import there (the
+     port needs none of them);
   1. the kernel build (nvcc, one process per source, in parallel);
   2. the bf16 slice at full width, bf16 weights from a seed, fp32 latents:
      invert a background and two object videos, then
@@ -15,8 +19,12 @@ Phases, in order (each failure ends the run with a non-zero exit):
      natural temporal layout and a VAE decode.  Every kernel launch count is
      set to 0 just before and read just after; per composite step launches,
      wall times and peak memory are printed.  K3 must not launch here;
-  3. one composite step through the fused path (two_pass=False) from the same
-     inputs, against the stream path;
+  3. one composite step through the fused path (two_pass=False) and one
+     through two_pass=True (the batched capture, then the consume) from the
+     same inputs as one stream step: each step's wall time and peak memory,
+     two_pass=True and stream within TOL_TWO_PASS of the fused step; then
+     two planted faults through two_pass=True (the injection dropped, the
+     objects' masks swapped), each of which must land beyond TOL_TWO_PASS;
   4. a reference check on a small input: the full-width UNet in fp32 on the
      card (kernels) against the same UNet in fp32 on the CPU (plain
      versions); then the same UNet quantized with enable_int8's "full"
@@ -34,22 +42,38 @@ Phases, in order (each failure ends the run with a non-zero exit):
      the bf16 and of the int8-mixed path runs again under torch.profiler:
      its wall time with and without the profiler, the device's busy time
      and idle share, and device time by kernel group);
+  7a. the checkpoint phase: the seeded bf16 pipeline written as a diffusers
+     I2VGen-XL directory (utils.testing.write_checkpoint: fp16 safetensors
+     UNet and image tower, fp32 safetensors VAE, a torch .bin text tower,
+     every config.json in diffusers / HF keys, the scheduler config, a
+     synthetic tokenizer), with its bytes and seconds; loaded back with
+     models.convert.load_pipeline (seconds, peak host and device memory),
+     every tensor equal to the written one cast to bf16, bit for bit; then
+     `python -m mvoc_tpu_torch.models.convert <dir> --verify` as a
+     subprocess, which must exit 0;
   7. the CLI phase: a demo tree of three synthetic 16-frame 1280 x 720
      videos (bg, obj1, obj2) as PNG frame directories, an edited first
      frame and two rectangle masks authored at 1280 x 720, with group JSONs
      over the shipped configs/group_*/template.yaml (cut: inversion and
      composite n_steps = --steps, recon from t_idx 1, composite from t_idx 1
      with fusion_step [0, 1]; every other key the template's: cfg 9, the
-     fused two_pass=False path, natural layout, decode_chunk_size 1); a
-     fresh bf16 pipeline through the CLIs' apply_unet_options and
+     fused two_pass=False path, natural layout, decode_chunk_size 1); the
+     pipeline from cli.common.build_pipeline with --checkpoint <the 7a
+     directory> (bf16), through the CLIs' apply_unet_options and
      apply_quantize, then cli.inverse.run (3 inversions, the reconstruction
      of bg scored by PSNR / SSIM) and cli.composite.run, counts set to 0
      just before and read just after; per CLI stage its wall time and
      K1 / K2 / K3 launches (K1, K2 > 0 and K3 = 0 required), the peak
      device memory, the trajectory container written, the files written
      (16 frames at 1280 x 720, the gif, and the mp4 when OpenCV exists);
+     then the composite's final latents decoded again with
+     enable_vae_tiling() (6 tiles of 64 x 64 latents a frame, K1 at the
+     VAE's [1, 1, 4096, 4096, 512]): its max difference from the untiled
+     decode, both peaks, K1's launches;
   8. kernel phases: K1 and K2 at every distinct shape the bf16 slice and
-     the CLI phase launched, plus a ragged 14400-token K1 case, each against its plain
+     the CLI phase and the tiled decode launched, plus a ragged 14400-token
+     K1 case and K1 with the temporal-window band as its bias (F = 96 in
+     both frame layouts, F = 160), each against its plain
      version computed in fp32 from the same bf16 inputs; K3 at every
      (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
      bitwise against its plain version.  Each with its device time
@@ -105,6 +129,20 @@ TOL_INT8_SHARE = 0.1
 TOL_FLIP_SHARE = 1e-5
 # K3 vs its plain version: integer sums are exact, the epilogue is the same
 TOL_S8 = 0.0
+# one bf16 composite step, two_pass=True or stream vs fused, relative to
+# max |latents|: the same function, but the pre-composited capture sums the
+# source terms in another order than the fused injection, so bf16 roundings
+# (2^-9 of a feature) pass through a random-weight UNet and the x9
+# guidance.  Phase 3 also plants two faults (injection dropped, masks
+# swapped), which must land above it
+TOL_TWO_PASS = 0.1
+# K1 with the temporal-window band as its bias, (frame layout, pixels, heads,
+# F, window): F = 96 in both layouts at the 512 px level-0 geometry, F = 160
+# at level 1 (D = 64)
+BAND_CASES = (("sf", 4096, 5, 96, 16), ("natural", 4096, 5, 96, 16),
+              ("natural", 1024, 10, 160, 16))
+# packages the JAX loader imports and the port does without
+FOREIGN_PACKAGES = ("safetensors", "transformers", "regex", "ftfy")
 # timed launches of every kernel and of its library call at every shape
 # (5 moved by up to 28% between runs: PERF.md, PR 2)
 TIMED_REPS = 20
@@ -389,16 +427,129 @@ def profile_step(run, tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the checkpoint phase: a full-width diffusers directory written and loaded
+# ---------------------------------------------------------------------------
+
+
+def _rss_gib() -> float:
+    """This process's resident set (VmRSS), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class RssPeak:
+    """The peak resident set of this process while the `with` body runs,
+    sampled every 5 ms by a thread (the card's machine keeps no VmHWM)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self.before = _rss_gib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, _rss_gib())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gib())
+
+
+def checkpoint_phase(seed: int, ckpt: str) -> dict:
+    """The seeded bf16 pipeline written as a diffusers I2VGen-XL directory `ckpt`,
+    loaded back with load_pipeline (every tensor the written one cast to
+    bf16, bit for bit), then checked by the convert CLI as a user runs it."""
+    import torch
+
+    from mvoc_tpu_torch.models import convert
+    from mvoc_tpu_torch.models.tokenizer import CLIPTokenizer
+    from mvoc_tpu_torch.utils import testing as tt
+
+    src = tt.build_full_pipeline(seed=seed)
+    nbytes, write_s = sync_time(lambda: tt.write_checkpoint(
+        ckpt, src, corpus=[PROMPT] + tt.template_prompts(), n_merges=500))
+    files = {os.path.relpath(os.path.join(d, n), ckpt): os.path.getsize(os.path.join(d, n))
+             for d, _, names in os.walk(ckpt) for n in names}
+    log(f"checkpoint: {nbytes / 1e9:.3f} GB written in {write_s:.2f} s "
+        f"({nbytes / 1e9 / write_s:.2f} GB/s) to {ckpt}; weight files "
+        f"{ {k: v for k, v in files.items() if k.endswith(('.safetensors', '.bin'))} }")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev_before = torch.cuda.memory_allocated()
+    with RssPeak() as rss:
+        pipe, load_s = sync_time(lambda: convert.load_pipeline(ckpt, dtype=torch.bfloat16,
+                                                               device="cuda"))
+    dev_peak = (torch.cuda.max_memory_allocated() - dev_before) / 2**30
+    log(f"checkpoint: loaded in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s); peak host "
+        f"memory of the load {rss.peak:.2f} GiB resident ({rss.peak - rss.before:.2f} GiB "
+        f"above the {rss.before:.2f} GiB before it, sampled every 5 ms), peak device memory "
+        f"of the load {dev_peak:.2f} GiB")
+    n_tensors = 0
+    for folder, (_, file_dtype) in tt.CHECKPOINT_FILES.items():
+        want, got = getattr(src, folder).state_dict(), getattr(pipe, folder).state_dict()
+        if sorted(want) != sorted(got):
+            raise RuntimeError(f"checkpoint: {folder} loaded other keys than it wrote")
+        for k, w in want.items():
+            if not (got[k].dtype == torch.bfloat16 and got[k].is_cuda
+                    and torch.equal(got[k], w.to(file_dtype).to(torch.bfloat16))):
+                raise RuntimeError(f"checkpoint: {folder}.{k} differs from the written tensor")
+        n_tensors += len(want)
+    sc, lc = src.unet.config, pipe.unet.config
+    geometry = dict(transformer_in=(lc.transformer_in_heads, lc.transformer_in_head_dim),
+                    temporal_encoder=(lc.img_temporal_encoder_heads,
+                                      lc.img_temporal_encoder_head_dim))
+    # config.json does not carry these two: the loader derives them from the shapes
+    inner = lambda heads, dim, default: heads * (dim or default)  # noqa: E731
+    if (lc.block_out_channels != sc.block_out_channels
+            or inner(lc.transformer_in_heads, lc.transformer_in_head_dim, lc.attention_head_dim)
+            != inner(sc.transformer_in_heads, sc.transformer_in_head_dim, sc.attention_head_dim)
+            or inner(lc.img_temporal_encoder_heads, lc.img_temporal_encoder_head_dim,
+                     lc.in_channels)
+            != inner(sc.img_temporal_encoder_heads, sc.img_temporal_encoder_head_dim,
+                     sc.in_channels)):
+        raise RuntimeError(f"checkpoint: UNet geometry {geometry} is not the written one")
+    if not isinstance(pipe.tokenizer, CLIPTokenizer) or pipe.tokenize([PROMPT]).shape != (1, 77):
+        raise RuntimeError("checkpoint: the tokenizer did not load")
+    log(f"checkpoint: {n_tensors} tensors equal to the written ones cast to bf16, bit for bit; "
+        f"UNet geometry {geometry}; tokenizer vocabulary {pipe.tokenizer.vocab_size}")
+    del src, pipe
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "mvoc_tpu_torch.models.convert", ckpt, "--verify"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    convert_s = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-3:]
+    log(f"checkpoint: `python -m mvoc_tpu_torch.models.convert <dir> --verify` exit "
+        f"{proc.returncode} in {convert_s:.1f} s: {tail}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"convert --verify failed:\n{proc.stderr[-4000:]}")
+    return dict(dir=ckpt, bytes=nbytes, write_s=write_s, load_s=load_s,
+                host_peak_gib=rss.peak, host_before_gib=rss.before, device_peak_gib=dev_peak,
+                tensors=n_tensors, files=files, convert_s=convert_s, convert_tail=tail)
+
+
+# ---------------------------------------------------------------------------
 # the CLI phase: both CLIs at the templates' 1280 x 720
 # ---------------------------------------------------------------------------
 
 
-def cli_phase(steps: int, seed: int) -> dict:
+def cli_phase(steps: int, seed: int, ckpt: str, tmp: str) -> dict:
     """The inversion CLI (3 videos, the reconstruction round trip on bg) and
     the composite CLI (fused, N = 2) on a demo tree of 16-frame 1280 x 720
-    videos, through the CLIs' own configure / apply_unet_options /
-    apply_quantize / run, with every launch count set to 0 just before and
-    read just after; wall time, launches and peak memory per CLI stage."""
+    videos, through the CLIs' own configure / build_pipeline (from the
+    checkpoint directory `ckpt`) / apply_unet_options / apply_quantize /
+    run, with every launch count set to 0 just before and read just after;
+    wall time, launches and peak memory per CLI stage.  Then the
+    composite's final latents decoded again, tiled."""
     import contextlib
 
     import torch
@@ -424,12 +575,18 @@ def cli_phase(steps: int, seed: int) -> dict:
         f"{steps} from t_idx 1 with fusion_step [0, 1] (template "
         f"{templates['composite'].n_steps} from {templates['composite'].ddim_init_latents_t_idx}, "
         f"{list(templates['composite'].fusion_step)})")
+    paths = tt.write_demo_tree(tmp, width, height, nf, steps, seed=seed)
     device = common.template_device(templates["inversion"])
-    pipe, build_s = sync_time(lambda: tt.build_full_pipeline(seed=seed, device=device))
+    args = common.parse_args("configs/group_inversion/template.yaml",
+                             ["--configs_json", paths["inversion"], "--checkpoint", ckpt])
+    pipe, build_s = sync_time(lambda: common.build_pipeline(args, templates["inversion"]))
     pipe = common.apply_unet_options(pipe, templates["inversion"])
     pipe = common.apply_quantize(pipe, templates["inversion"])
-    log(f"cli: pipeline on {device} (template device {templates['inversion'].device!r}), "
-        f"built in {build_s:.1f} s; UNet temporal_natural_layout "
+    if pipe.device != device or pipe.dtype != torch.bfloat16:
+        raise RuntimeError(f"cli: build_pipeline gave {pipe.dtype} on {pipe.device}")
+    log(f"cli: pipeline from --checkpoint {ckpt} (--dtype {args.dtype}) on {device} "
+        f"(template device {templates['inversion'].device!r}), loaded in {build_s:.1f} s; "
+        f"UNet temporal_natural_layout "
         f"{pipe.unet.config.temporal_natural_layout}, quantize "
         f"{templates['inversion'].get('quantize', None)}")
     if media.cv2 is None:
@@ -437,7 +594,7 @@ def cli_phase(steps: int, seed: int) -> dict:
             "without the mp4 (the CLIs themselves raise without OpenCV)")
         media.export_to_video = lambda frames, path, fps=8: path
 
-    stages, peaks, calls, open_stages, step_s = {}, {}, {}, [], []
+    stages, peaks, calls, open_stages, step_s, finals = {}, {}, {}, [], [], []
 
     class CountingTimer(StepTimer):
         """StepTimer whose stages also record their kernel launches, their
@@ -482,7 +639,10 @@ def cli_phase(steps: int, seed: int) -> dict:
                 torch.cuda.synchronize()
                 last[0] = time.perf_counter()
             with timer.stage(name):
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+            if attr == "pnp_composite_core":
+                finals.append(out)
+            return out
 
         setattr(owner, attr, wrapped)
         return fn
@@ -495,8 +655,6 @@ def cli_phase(steps: int, seed: int) -> dict:
                                    (core, "pnp_composite_core"), (media, "load_video_frames"),
                                    (media, "export_to_video"), (media, "export_to_gif"),
                                    (composite, "_load_frame_dir"), (composite, "load_entry_masks"))]
-    tmp = tempfile.mkdtemp(prefix="mvoc_smoke_cli_")
-    paths = tt.write_demo_tree(tmp, width, height, nf, steps, seed=seed)
     inv_cfgs = inverse.configure(templates["inversion"], cfglib.load_json_list(paths["inversion"]))
     comp_cfgs = composite.configure(templates["composite"],
                                     cfglib.load_json_list(paths["composite"]))
@@ -574,14 +732,57 @@ def cli_phase(steps: int, seed: int) -> dict:
     if getattr(gif, "n_frames", 1) != nf or gif.size != (width, height):
         raise RuntimeError(f"cli: video.gif holds {getattr(gif, 'n_frames', 1)} frames of "
                            f"{gif.size}")
-    shutil.rmtree(tmp)
+    tiled = tiled_decode_phase(pipe, finals[-1], nf, height, width)
     del pipe
     torch.cuda.empty_cache()
     return dict(launches=launches, shapes=shapes, stages=stages, stage_s=times,
                 stage_calls=calls, stage_peak_gib={k: v / 2**30 for k, v in peaks.items()},
                 composite_step_s=step_s, total_s=total_s, peak_gib=peak,
                 containers=containers, recon=recon, frames=len(frames),
-                mp4=media.cv2 is not None)
+                mp4=media.cv2 is not None, build_s=build_s, tiled=tiled)
+
+
+def tiled_decode_phase(pipe, final, nf: int, height: int, width: int) -> dict:
+    """The composite's final latents decoded as the CLI did (untiled, one
+    frame a call) and with enable_vae_tiling() (64 x 64-latent tiles, 8 of
+    overlap), each with its wall time and peak device memory; the tiled
+    decode's K1 launches (the VAE's [1, 1, 4096, 4096, 512] per tile)."""
+    import torch
+
+    decode = type(pipe).decode_latents  # the pipeline's own, not the CLI phase's timed wrapper
+    out = {}
+    for mode in ("untiled", "tiled"):
+        if mode == "tiled":
+            pipe.enable_vae_tiling()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        video, secs = sync_time(lambda: decode(pipe, final, decode_chunk_size=1))
+        launches, shapes = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        out[mode] = dict(video=video, s=secs, peak_gib=peak / 2**30,
+                         activation_peak_gib=(peak - base) / 2**30, launches=launches,
+                         shapes=shapes)
+        log(f"decode of the composite latents {tuple(final.shape)}, {mode}: {secs:.2f} s, peak "
+            f"device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB held before), launches {launches}")
+    pipe.disable_vae_tiling()
+    untiled, tiled = out["untiled"].pop("video"), out["tiled"].pop("video")
+    if tiled.shape != (nf, height, width, 3) or not np.isfinite(tiled).all():
+        raise RuntimeError(f"tiled decode gave {tiled.shape}, finite {np.isfinite(tiled).all()}")
+    diff = float(np.abs(tiled - untiled).max())
+    tile_sig = (1, 1, 4096, 4096, 512, "torch.bfloat16", False)
+    n_tile = out["tiled"]["shapes"]["flash_attention"].get(tile_sig, 0)
+    log(f"tiled vs untiled decode: max |diff| {diff:.4g} of pixel values in [0, 1] (each tile's "
+        f"GroupNorm statistics are its own, as in the JAX package and the reference); K1 at "
+        f"{list(tile_sig[:5])}: {n_tile} launches ({n_tile / nf:.0f} a frame); peaks "
+        f"{out['tiled']['peak_gib']:.2f} GiB tiled, {out['untiled']['peak_gib']:.2f} GiB untiled")
+    if n_tile <= 0:
+        raise RuntimeError("the tiled decode never launched K1 at the 64 x 64 tile")
+    return dict(diff=diff, tile_launches=n_tile, shapes=out["tiled"]["shapes"],
+                untiled={k: v for k, v in out["untiled"].items() if k != "shapes"},
+                tiled_run={k: v for k, v in out["tiled"].items() if k != "shapes"})
 
 
 # ---------------------------------------------------------------------------
@@ -606,19 +807,29 @@ def launched_variant(mod, name: str, fn):
     return out, "+".join(took)
 
 
-def flash_phase(sig, gen):
+def band(f: int, window: int):
+    """The temporal window's [F, F] band on the card (True = attend)."""
     import torch
+
+    idx = torch.arange(f, device="cuda")
+    return (idx[:, None] - idx[None, :]).abs() <= window // 2
+
+
+def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
+    """K1 on [B, H, S, D] views (bias: its fp32 [Sq, Sk] or None; mask: the
+    same as SDPA's boolean mask): error against the plain version in fp32
+    from the same bf16 inputs, times of the kernel, its call, the plain
+    version, the SIMT design and one SDPA call; operations counted
+    over the (query, key) pairs the function needs."""
     import torch.nn.functional as F
 
     from mvoc_tpu_torch.ops import attention as A
 
-    b, h, sq, sk, d, _ = sig
-    dev = torch.device("cuda")
-    # the main path's layout: [B, S, H, D] projections viewed as [B, H, S, D]
-    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
-               .transpose(1, 2) for s in (sq, sk, sk))
-    out, design = launched_variant(A, "flash_attention", lambda: A.flash_attention(q, k, v))
-    old = A._flash_cuda(q, k, v, "simt")  # the PR 1 design, kept for this comparison
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    out, design = launched_variant(A, "flash_attention", lambda: A.flash_attention(
+        q, k, v, bias=bias))
+    old = A._flash_cuda(q, k, v, "simt", bias=bias)  # the old design, kept for comparison
     # plain version in fp32 from the same bf16 inputs, over (batch x head)
     # slices in chunks that keep their [Sq, Sk] fp32 logits under ~4 GB (one
     # slice at 14400 tokens holds 0.83 GB of them)
@@ -626,22 +837,82 @@ def flash_phase(sig, gen):
 
     def plain(q, k, v):
         flat = [t.reshape(b * h, 1, t.shape[2], d) for t in (q, k, v)]
-        return _chunked(A.flash_attention_plain, b * h, chunk, *flat).reshape(b, h, sq, d)
+        return _chunked(lambda *a: A.flash_attention_plain(*a, bias=bias), b * h, chunk,
+                        *flat).reshape(b, h, sq, d)
 
     ref = plain(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     old_err = (old.float() - ref).abs().max().item()
     tol = TOL_BF16 * ref.abs().max().item()
-    call_ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
-    ms = graph_ms(lambda: A.flash_attention(q, k, v), reps=TIMED_REPS)
-    old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt"), reps=3)
+    call_ms = cuda_ms(lambda: A.flash_attention(q, k, v, bias=bias), reps=TIMED_REPS)
+    ms = graph_ms(lambda: A.flash_attention(q, k, v, bias=bias), reps=TIMED_REPS)
+    old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt", bias=bias), reps=3)
     plain_ms = cuda_ms(lambda: plain(q, k, v), reps=1)
-    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=TIMED_REPS)
-    flops = 4.0 * b * h * sq * sk * d
-    nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                      reps=TIMED_REPS)
+    flops = 4.0 * b * h * needed_pairs * d
+    nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d) + (
+        0.0 if bias is None else 4.0 * sq * sk)
     return dict(err=err, old_err=old_err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS,
-                old_ms=old_ms, design=design)
+                old_ms=old_ms, design=design, out=out)
+
+
+def flash_phase(sig, gen):
+    """K1 at a launched signature (B, H, Sq, Sk, D, dtype, biased), or at a
+    BAND_CASES entry (band_phase)."""
+    import torch
+
+    from mvoc_tpu_torch.ops import attention as A
+
+    if sig[0] in ("sf", "natural"):
+        return band_phase(sig, gen)
+    b, h, sq, sk, d, _, biased = sig
+    dev = torch.device("cuda")
+    # the main path's layout: [B, S, H, D] projections viewed as [B, H, S, D]
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+               .transpose(1, 2) for s in (sq, sk, sk))
+    mask = band(sq, 16) if biased else None
+    pairs = float(mask.sum().item()) if biased else float(sq) * sk
+    ph = _flash_measure(q, k, v, A.band_bias(mask), mask, pairs)
+    ph.pop("out")
+    return ph
+
+
+def band_phase(case, gen):
+    """K1 with the temporal window's band as its bias over F > 64 frames, on
+    the [S, H, F, D] view layers.sdpa (layout "sf": [S, F, H*D]) or
+    layers.sdpa_frames (layout "natural": [1, F, S, H*D]) hands it; the
+    layer's own output must be the kernel's, bit for bit."""
+    import torch
+
+    from mvoc_tpu_torch.models import layers
+    from mvoc_tpu_torch.ops import attention as A
+
+    layout, s, heads, f, window = case
+    d = 64
+    shape = (s, f, heads * d) if layout == "sf" else (1, f, s, heads * d)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+
+    def view(t):
+        if layout == "sf":
+            return t.view(s, f, heads, d).transpose(1, 2)
+        return t[0].unflatten(-1, (heads, d)).permute(1, 2, 0, 3)
+
+    mask = band(f, window)
+    ph = _flash_measure(view(q), view(k), view(v), A.band_bias(mask), mask,
+                        float(mask.sum().item()))
+    out = ph.pop("out")
+    if layout == "sf":
+        layer = layers.sdpa(q, k, v, heads, mask=mask)
+        same = torch.equal(layer, out.transpose(1, 2).reshape(s, f, heads * d))
+    else:
+        layer = layers.sdpa_frames(q, k, v, heads, mask=mask)
+        same = torch.equal(layer, out.permute(2, 0, 1, 3).reshape(1, f, s, heads * d))
+    if not same:
+        raise RuntimeError(f"K1 band case {case}: the layer's output is not the kernel's")
+    return ph
 
 
 def sass_counts(stem: str) -> dict:
@@ -851,6 +1122,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
+    import importlib.util
+
+    log("packages the port does without, present here: " + ", ".join(
+        f"{name} {importlib.util.find_spec(name) is not None}" for name in FOREIGN_PACKAGES))
 
     from mvoc_tpu_torch.ops import _build
     from mvoc_tpu_torch.ops import quantize as Q
@@ -915,17 +1190,48 @@ def main() -> int:
     # 3. one fused step against one stream step, same inputs
     init, cond, one, ms, pb, ps, cw = one_step_inputs(pipe, videos, masks, bf16["stores"],
                                                       steps, args.seed, "stream")
-    outs = {}
-    for tp_mode in ("stream", False):
+    outs, step_stats = {}, {}
+    for tp_mode in ("stream", False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         outs[tp_mode], secs = sync_time(lambda: core.pnp_composite_core(
             pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
-            guidance_scale=9.0, two_pass=tp_mode, capture_weights=cw))
-        log(f"one composite step, two_pass={tp_mode!r}: {secs:.2f} s")
-    diff = (outs["stream"] - outs[False]).abs().max().item()
+            guidance_scale=9.0, two_pass=tp_mode,
+            capture_weights=cw if tp_mode == "stream" else None))
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        step_stats[repr(tp_mode)] = dict(s=secs, peak_gib=step_peak)
+        log(f"one composite step, two_pass={tp_mode!r}: {secs:.2f} s, peak memory "
+            f"{step_peak:.2f} GiB")
+    # planted faults through the two_pass=True path: the injection dropped
+    # (every gate off) and misplaced (the two objects' masks swapped); each
+    # must land beyond the tolerance, so that the gate can see such a fault
+    off = np.zeros_like(one.gate_spatial)
+    faults = {
+        "injection dropped": (dataclasses.replace(one, gate_spatial=off, gate_temporal=off,
+                                                  gate_conv=off), pb, ps),
+        "masks swapped": (one, {r: m.flip(0) for r, m in pb.items()},
+                          {r: m.flip(0) for r, m in ps.items()}),
+    }
+    for name, (one_f, pb_f, ps_f) in faults.items():
+        outs[name] = core.pnp_composite_core(
+            pipe.unet, pipe.ddim, init, cond, one_f, ms, pb_f, ps_f, num_inference_steps=steps,
+            guidance_scale=9.0, two_pass=True)
     scale = outs[False].abs().max().item()
-    log(f"stream vs fused, one step (bf16): max |diff| {diff:.4g}, max |x| {scale:.4g}")
-    if not math.isfinite(diff):
-        raise RuntimeError("stream/fused step gave non-finite values")
+    step_stats["scale"] = scale
+    for mode in ("stream", True, "injection dropped", "masks swapped"):
+        diff = (outs[mode] - outs[False]).abs().max().item()
+        step_stats[f"{mode} vs fused"] = diff
+        fault = isinstance(mode, str) and mode != "stream"
+        log(f"{'planted fault, ' + mode if fault else f'two_pass={mode!r}'} vs fused, one "
+            f"step (bf16): max |diff| {diff:.4g} ({diff / scale:.4g} of max |x| {scale:.4g}; "
+            f"tolerance {TOL_TWO_PASS}, {'over' if fault else 'under'} it to pass)")
+        if not math.isfinite(diff):
+            raise RuntimeError(f"{mode} step gave non-finite values")
+        if fault and not diff > TOL_TWO_PASS * scale:
+            raise RuntimeError(f"planted fault ({mode}) is within the tolerance of the fused "
+                               f"step: the gate cannot see it")
+        if not fault and not diff <= TOL_TWO_PASS * scale:
+            raise RuntimeError(f"two_pass={mode!r} step is {diff:.4g} from the fused step")
     profiles = {"bf16": profile_step(lambda: core.pnp_composite_core(
         pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
         guidance_scale=9.0, two_pass="stream", capture_weights=cw), "bf16")}
@@ -1033,8 +1339,13 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    # 7. both CLIs at the templates' 1280 x 720
-    cli = cli_phase(args.steps, args.seed)
+    # 7a. a full-width diffusers checkpoint: written, loaded, verified; then
+    # 7. both CLIs at the templates' 1280 x 720 from that checkpoint, and a
+    # tiled decode of their composite (both directories removed on any exit)
+    with tempfile.TemporaryDirectory(prefix="mvoc_smoke_ckpt_") as ckpt_root, \
+            tempfile.TemporaryDirectory(prefix="mvoc_smoke_cli_") as cli_root:
+        ckpt = checkpoint_phase(args.seed, os.path.join(ckpt_root, "i2vgen-xl"))
+        cli = cli_phase(args.steps, args.seed, ckpt["dir"], cli_root)
 
     # 8. kernel phases at every shape the paths launched (+ ragged cases)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1044,11 +1355,11 @@ def main() -> int:
     attn_shapes = {}
     for name in ("flash_attention", "frame_attention"):
         attn_shapes[name] = dict(bf16["shapes"][name])
-        for sig in cli["shapes"][name]:
+        for sig in list(cli["shapes"][name]) + list(cli["tiled"]["shapes"][name]):
             attn_shapes[name].setdefault(sig, 0)
     plans = (
         ("flash_attention", flash_phase, attn_shapes["flash_attention"],
-         [(1, 5, 14400, 14400, 64, "torch.bfloat16")]),
+         [(1, 5, 14400, 14400, 64, "torch.bfloat16", False)] + list(BAND_CASES)),
         ("frame_attention", frame_phase, attn_shapes["frame_attention"], []),
         ("s8_matmul", s8_phase, s8_shapes,
          [(17, 36, 9, "torch.bfloat16"), (17, 36, 9, "torch.float32")]),
@@ -1061,6 +1372,7 @@ def main() -> int:
             row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
                        cli_launches=cli["shapes"].get(name, {}).get(sig, 0),
+                       tiled_launches=cli["tiled"]["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
@@ -1083,7 +1395,8 @@ def main() -> int:
                 f"plain_ms {ph['plain_ms']:.4f} "
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
-                f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}{extra}")
+                f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}, "
+                f"tiled-decode launches {row['tiled_launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
             if not ph.get("old_err", 0.0) <= ph["tol"]:
@@ -1136,8 +1449,11 @@ def main() -> int:
             s=full_secs, launches=full_launch, peak_gib=full_peak),
             kernel_ms_per_step=per_step_ms, reference=dict(
                 fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),
-            int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles,
-            cli={k: v for k, v in cli.items() if k != "shapes"}, phases=table), f, indent=1)
+            int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles, composite_step=step_stats,
+            checkpoint={k: v for k, v in ckpt.items() if k not in ("root", "dir")},
+            cli=dict({k: v for k, v in cli.items() if k not in ("shapes", "tiled")},
+                     tiled={k: v for k, v in cli["tiled"].items() if k != "shapes"}),
+            phases=table), f, indent=1)
 
     # one row per kernel, from this slice's path that launched it (K1, K2:
     # the CLIs at 1280 x 720; K3: the int8-mixed path), with the launches of

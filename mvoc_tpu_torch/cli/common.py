@@ -101,9 +101,9 @@ def build_pipeline(args, template_cfg):
             f"checkpoint dir not found: {ckpt} (pass --checkpoint, set "
             "pretrained_model_path in the template, or use --checkpoint tiny)"
         )
-    raise NotImplementedError(
-        f"loading the checkpoint {ckpt} (models/convert.py: load_pipeline) is not ported yet "
-        f"(ROADMAP.md §1 item 7); use --checkpoint tiny (dtype {dtype} requested)")
+    from mvoc_tpu_torch.pipeline.i2vgen import I2VGenXLPipeline
+
+    return I2VGenXLPipeline.from_pretrained(ckpt, dtype=dtype, device=device)
 
 
 def check_unported_options(args, template_cfg, batch_key: str) -> None:
@@ -115,11 +115,11 @@ def check_unported_options(args, template_cfg, batch_key: str) -> None:
 
 
 def apply_mesh(pipe, args, template_cfg):
-    """Sharding over a device mesh (--mesh / --mesh_seq / --mesh_job, the
-    template's mesh_devices): not ported yet, refused when asked for."""
+    """Sharding over a device mesh (--mesh, the template's mesh_devices): not
+    ported yet, refused when a mesh size is asked for.  As in the JAX CLI,
+    --mesh_seq / --mesh_job without a mesh size leave the pipeline as it is."""
     spec = args.mesh if args.mesh is not None else template_cfg.get("mesh_devices")
-    if spec in (None, "", 0, "0", "off", False) and args.mesh_seq is None \
-            and args.mesh_job is None:
+    if spec in (None, "", 0, "0", "off", False):
         return pipe
     raise NotImplementedError(
         f"the device mesh (--mesh {spec}, --mesh_seq {args.mesh_seq}, --mesh_job "

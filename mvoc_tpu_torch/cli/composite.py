@@ -171,7 +171,8 @@ def _export_video(video, config) -> None:
 
 def run_entry(pipe, config) -> None:
     if config.get("enable_vae_tiling", False):
-        pipe.enable_vae_tiling()  # not ported yet: raises
+        # reference parity memory knob (pipeline_i2vgen_xl.py:520-550)
+        pipe.enable_vae_tiling()
     per_entry, static = _entry_inputs(pipe, config)
     video = pipe.sample_composite(**per_entry, **static)
     _export_video(video, config)

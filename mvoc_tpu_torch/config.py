@@ -12,6 +12,7 @@ reference's template.yaml / group_config.json files run unchanged.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 from typing import Any, Iterator, Mapping
@@ -189,3 +190,12 @@ def check_no_replaceme(cfg: Config, logger=None) -> list[str]:
         for k in bad:
             logger.error(f"Field {k} contains 'ReplaceMe'")
     return bad
+
+
+def dataclass_from_json(cls, path: str):
+    """The dataclass `cls` from a JSON object file (a checkpoint's
+    config.json); keys that are not fields of `cls` are dropped."""
+    with open(path) as f:
+        raw = json.load(f)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in raw.items() if k in fields})

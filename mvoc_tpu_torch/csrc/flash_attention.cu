@@ -5,7 +5,10 @@
 //
 // Function (kept from the TPU kernel, in this order):
 //   q' = round_to_input_dtype(q * 1/sqrt(D))        (scaled once, rounded)
-//   s  = q' k^T in fp32; key columns >= Sk get -1e30 (finite, never -inf)
+//   s  = q' k^T in fp32, plus the optional fp32 bias [Sq, Sk] (row-major,
+//        shared over batch and heads; the frame-axis band of a temporal
+//        window: 0 kept, -1e30 masked), floored at -2e30; key columns >= Sk
+//        get -1e30 (finite, never -inf)
 //   online softmax over key tiles: m, l and the accumulator in fp32;
 //   p = exp(s - m) is rounded to the input dtype before the P.V product;
 //   out = acc / l, cast to the input dtype.
@@ -41,9 +44,11 @@
 //    and runs the same softmax), and each multiplies P by its V slice.
 //    64 query rows and 32-key tiles: Q 64 KB + 2 stages of K/V 128 KB + the
 //    partials 32 KB.
-//  * SIMT (fp32 at D = 64 and 512): FP32 FMAs from shared memory, so fp32
-//    stays exact fp32 (tensor cores would take it to TF32); its bf16
-//    instantiation only serves side-by-side timing.  One block per (batch*
+//  * SIMT (fp32 at D = 64 and 512, and D = 4 in both dtypes, the
+//    image-latents encoder over more than 64 frames): FP32 FMAs from shared
+//    memory, so fp32 stays exact fp32 (tensor cores would take it to TF32);
+//    at D = 64 and 512 its bf16 instantiation only serves side-by-side
+//    timing.  One block per (batch*
 //    head, query tile); each thread owns one key column of the logits tile
 //    and a fixed set of output accumulators.
 // q/k/v are read through their (batch, head, seq) strides: the [B, S, H, D]
@@ -52,6 +57,26 @@
 // of 8 elements and the pointers 16-byte aligned.  Ragged tails: K/V rows
 // past Sk are zero-filled and their logits masked; Q rows past Sq are
 // zero-filled and never stored.
+//
+// The bias serves frame-axis attention over more than 64 frames (K2 stops
+// at 64), masked by a temporal window or not.  A band always keeps its
+// diagonal, so every row has a kept key (the wrapper refuses a bias with a
+// row that keeps none), but a row may meet key tiles it
+// masks entirely before its first kept key.  The wgmma designs run the
+// softmax in log2 units (s * scale * log2(e) at D = 64, whose logits are
+// unscaled and take the bias times 1 / scale; s * log2(e) at D = 512, whose
+// q was scaled): a masked logit lands at -1.44e30 or below, under the
+// running max's initial -1e30, so the max stays there and those keys get
+// p = exp2(-4e29 or less) = 0.  (Flooring the D = 64 design's unscaled
+// logits at -1e30 would put the max at -1.8e29, where the fma of
+// exp2(s * sl - m) leaves up to +-2^73 of rounding: p = inf.)  The SIMT
+// kernel's softmax is in natural units: its masked logits sit at the
+// initial max and get p = exp(0) = 1 exactly, and the first tile with a
+// kept key rescales that row's sum and accumulator by exp(-1e30 - m) = 0.
+// Biased logits are floored at -2e30 (in each design's logit units), so a
+// -inf in the bias stays finite.  The bias is read from global memory (an
+// [F, F] band is a few KB and stays in L1/L2); a masked frame-axis call is
+// rare, and its speed is recorded, not tuned.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -80,7 +105,7 @@ struct FlashCfg {
 template <typename T, int D, int BQ, int BK, int NT>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int H, int Sq, int Sk,
+             T* __restrict__ o, const float* __restrict__ bias, int H, int Sq, int Sk,
              int64_t qsb, int64_t qsh, int64_t qss,
              int64_t ksb, int64_t ksh, int64_t kss,
              int64_t vsb, int64_t vsh, int64_t vss,
@@ -153,7 +178,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       }
       const bool valid = (k0 + j) < Sk;
 #pragma unroll
-      for (int r = 0; r < C::RS; ++r) Ss[(i0 + r * ISTEP) * BK + j] = valid ? s[r] : kNegBig;
+      for (int r = 0; r < C::RS; ++r) {
+        const int row = q0 + i0 + r * ISTEP;
+        float x = s[r];
+        if (bias != nullptr && valid && row < Sq)
+          x = fmaxf(x + bias[static_cast<int64_t>(row) * Sk + k0 + j], 2.f * kNegBig);
+        Ss[(i0 + r * ISTEP) * BK + j] = valid ? x : kNegBig;
+      }
     }
     __syncthreads();
     for (int i = warp; i < BQ; i += NW) {  // online softmax, one warp per row
@@ -199,8 +230,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int D, int BQ, int BK, int NT>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Sq, int Sk, const long long* st, float scale, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, const float* bias,
+                        int B, int H, int Sq, int Sk, const long long* st, float scale,
+                        cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, BQ, BK, NT>;
   const size_t smem = FlashCfg<T, D, BQ, BK, NT>::smem_bytes();
   cudaError_t err = prepare_smem(kernel, smem);
@@ -210,7 +242,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, in
   dim3 grid(static_cast<unsigned>(B) * H, static_cast<unsigned>(n_qt));
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      static_cast<T*>(o), bias, H, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
@@ -226,6 +258,7 @@ struct FlashArgs {
   const bf16* k;
   const bf16* v;
   bf16* o;
+  const float* bias;  // [Sq, Sk] fp32 or null
   int H, Sq, Sk;
   int64_t qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;  // elements
   float scale;                                                           // 1 / sqrt(D)
@@ -268,6 +301,23 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// s[i] += bias[row, col] * mul, floored at -2e30 * mul, for the accumulator
+// layout of softmax_tile below (rows row0 and row0 + 8, columns col0 + 8j
+// + (e & 1)); entries outside [Sq, Sk] keep their logit (a ragged column is
+// masked by softmax_tile, a ragged row never stored).  mul takes the bias
+// into the units of s: 1 / scale where the scale is applied to the logits.
+template <int NS>
+__device__ __forceinline__ void add_bias(float (&s)[NS], const float* __restrict__ bias, int Sq,
+                                         int Sk, int row0, int col0, float mul) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2) + (i & 1);
+    if (row < Sq && col < Sk)
+      s[i] = fmaxf(fmaf(bias[static_cast<int64_t>(row) * Sk + col], mul, s[i]),
+                   2.f * kNegBig * mul);
+  }
 }
 
 // One key tile of the online softmax for the two rows (g, g + 8) a thread
@@ -361,6 +411,9 @@ struct WgmmaD64 {
   static constexpr size_t smem = 1024 + BQ * 128 + 2 * 2 * TILE;
 };
 
+// kBias: the biased instantiation; the unbiased one compiles without the
+// bias code, so its registers are those of the kernel before the bias.
+template <bool kBias>
 __global__ void __launch_bounds__(256, 2) flash_wgmma_d64(const FlashArgs a) {
   using C = WgmmaD64;
   constexpr int BK = C::BK, NT = C::NT, TILE = C::TILE;
@@ -404,6 +457,11 @@ __global__ void __launch_bounds__(256, 2) flash_wgmma_d64(const FlashArgs a) {
     wgmma_wait<0>();
     fence_regs(s);
 
+    // the logits here are unscaled (the scale rides in sl), so the bias
+    // enters times 1 / scale: exactly 8 at D = 64
+    if constexpr (kBias)
+      add_bias(s, a.bias, a.Sq, a.Sk, q0 + wg * 64 + warp * 16 + g, kt * BK + 2 * t,
+               1.f / a.scale);
     softmax_tile(s, o, m, l, sl, kt * BK + 2 * t, a.Sk, (kt + 1) * BK > a.Sk);
     uint32_t pa[BK / 16][4];
     p_fragments(pa, s);
@@ -428,6 +486,7 @@ struct WgmmaD512 {
   static constexpr size_t smem = 1024 + QT + 2 * 2 * KT + 4 * BQ * BK * sizeof(float);
 };
 
+template <bool kBias>
 __global__ void __launch_bounds__(512, 1) flash_wgmma_d512(const FlashArgs a) {
   using C = WgmmaD512;
   constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, QA = C::QA, KA = C::KA, KT = C::KT;
@@ -511,6 +570,8 @@ __global__ void __launch_bounds__(512, 1) flash_wgmma_d512(const FlashArgs a) {
         s[4 * j + 2 * r + 1] = acc.y;
       }
 
+    if constexpr (kBias)  // q was scaled: these logits are in the bias's units
+      add_bias(s, a.bias, a.Sq, a.Sk, q0 + rA, kt * BK + 2 * t, 1.f);
     softmax_tile(s, o, m, l, kLog2e, kt * BK + 2 * t, a.Sk, (kt + 1) * BK > a.Sk);
     uint32_t pa[2][4];
     p_fragments(pa, s);
@@ -541,56 +602,68 @@ cudaError_t launch_tc(Kernel kernel, int BQ, int NT, size_t smem, const FlashArg
   return cudaGetLastError();
 }
 
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                         int Sq, int Sk, int D, const long long* st, float scale,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, const float* bias,
+                         int B, int H, int Sq, int Sk, int D, const long long* st, float scale,
                          cudaStream_t stream) {
   const FlashArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Sq, Sk,
+                    static_cast<const bf16*>(v), static_cast<bf16*>(o), bias, H, Sq, Sk,
                     st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
                     st[10], st[11], scale};
+  const bool biased = bias != nullptr;
   if (D == 64) {
     using C = WgmmaD64;
-    return launch_tc(flash_wgmma_d64, C::BQ, C::NT, C::smem, a, B, stream);
+    return launch_tc(biased ? &flash_wgmma_d64<true> : &flash_wgmma_d64<false>, C::BQ, C::NT,
+                     C::smem, a, B, stream);
   }
   if (D == 512) {
     using C = WgmmaD512;
-    return launch_tc(flash_wgmma_d512, C::BQ, C::NT, C::smem, a, B, stream);
+    return launch_tc(biased ? &flash_wgmma_d512<true> : &flash_wgmma_d512<false>, C::BQ, C::NT,
+                     C::smem, a, B, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_simt_d(const void* q, const void* k, const void* v, void* o, int B, int H,
-                          int Sq, int Sk, int D, const long long* st, float scale,
+cudaError_t launch_simt_d(const void* q, const void* k, const void* v, void* o, const float* bias,
+                          int B, int H, int Sq, int Sk, int D, const long long* st, float scale,
                           cudaStream_t stream) {
   switch (D) {
-    case 64: return launch_simt<T, 64, 64, 64, 256>(q, k, v, o, B, H, Sq, Sk, st, scale, stream);
-    case 512: return launch_simt<T, 512, 16, 32, 256>(q, k, v, o, B, H, Sq, Sk, st, scale, stream);
+    // D = 4: the image-latents temporal encoder over more than 64 frames
+    case 4:
+      return launch_simt<T, 4, 64, 64, 256>(q, k, v, o, bias, B, H, Sq, Sk, st, scale, stream);
+    case 64:
+      return launch_simt<T, 64, 64, 64, 256>(q, k, v, o, bias, B, H, Sq, Sk, st, scale, stream);
+    case 512:
+      return launch_simt<T, 512, 16, 32, 256>(q, k, v, o, bias, B, H, Sq, Sk, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace mvoc
 
-// variant: 0 SIMT (fp32, or bf16 for timing; D 64 or 512), 1 wgmma (bf16;
-// D 64 or 512).  strides: 12 values, (batch, head, seq) for q, k, v, o, in
+// variant: 0 SIMT (fp32, or bf16 for timing; D 4, 64 or 512), 1 wgmma (bf16;
+// D 64 or 512).  bias: null, or fp32 [Sq, Sk] row-major, added to the
+// scaled logits of every (batch, head).  strides: 12 values, (batch, head, seq) for q, k, v, o, in
 // elements; the head-dim stride must be 1.  The wgmma variant needs every
 // stride a multiple of 8 and 16-byte aligned pointers (the wrapper checks).
 // Returns a cudaError_t (0 = launched).
 extern "C" int mvoc_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                    int variant, int dtype, int B, int H, int Sq, int Sk, int D,
+                                    const float* bias, int variant, int dtype, int B, int H,
+                                    int Sq, int Sk, int D,
                                     const long long* strides, float scale, void* stream) {
   using namespace mvoc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
   if (variant == 0) {
     switch (dtype) {
-      case kF32: return launch_simt_d<float>(q, k, v, o, B, H, Sq, Sk, D, strides, scale, s);
+      case kF32:
+        return launch_simt_d<float>(q, k, v, o, bias, B, H, Sq, Sk, D, strides, scale, s);
       case kBF16:
-        return launch_simt_d<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, D, strides, scale, s);
+        return launch_simt_d<__nv_bfloat16>(q, k, v, o, bias, B, H, Sq, Sk, D, strides, scale,
+                                            s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (variant != 1 || dtype != kBF16) return cudaErrorInvalidValue;
-  return launch_wgmma(q, k, v, o, B, H, Sq, Sk, D, strides, scale, s);
+  return launch_wgmma(q, k, v, o, bias, B, H, Sq, Sk, D, strides, scale, s);
 }

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvoc_tpu_torch.config import dataclass_from_json
 from mvoc_tpu_torch.models.layers import Conv2d, LayerNorm
 
 
@@ -27,6 +28,11 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
+
+    @staticmethod
+    def from_json(path: str) -> "CLIPTextConfig":
+        """An HF config.json; keys that are not fields are dropped."""
+        return dataclass_from_json(CLIPTextConfig, path)
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
@@ -46,6 +52,11 @@ class CLIPVisionConfig:
     projection_dim: int = 1024
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
+
+    @staticmethod
+    def from_json(path: str) -> "CLIPVisionConfig":
+        """An HF config.json; keys that are not fields are dropped."""
+        return dataclass_from_json(CLIPVisionConfig, path)
 
     @staticmethod
     def tiny() -> "CLIPVisionConfig":

@@ -124,32 +124,57 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention over [B, S, H*D] projections.
 
-    A frame-axis call (sq == sk <= 64: temporal tokens [B*H*W, F, C], the
-    image-latents temporal encoder, and the spatial self-attention of the
-    8x8 level) goes to K2 in its pixel-major layout; every other unmasked
-    call to K1, whatever its length.  The kernels' wrappers launch on CUDA
-    tensors and take their plain versions on CPU tensors.  A mask (the
-    temporal window's [F, F] band) exists only on frame-axis calls."""
+    A frame-axis call (sq == sk <= 64 at head dim 4 or 64: temporal tokens
+    [B*H*W, F, C], the image-latents temporal encoder, and the spatial
+    self-attention of the 8x8 level) goes to K2 in its pixel-major layout;
+    every other call to K1, whatever its length (the VAE's D = 512 over at
+    most 64 tokens included), a frame-axis call over more than 64 frames
+    with its band mask (if any) as K1's bias.  The kernels' wrappers launch
+    on CUDA tensors and take their plain versions on CPU tensors.  A mask
+    (the temporal window's [F, F] band) exists only on frame-axis calls.
+
+    The JAX package masks with finfo(float32).min, the kernels with the
+    finite -1e30 (band_bias): a band always keeps its diagonal, so every
+    row has a kept key, and both give the masked keys probability 0."""
     b, sq, inner = q.shape
     sk = k.shape[1]
     d = inner // heads
-    if sq == sk and sq <= attn_ops.FRAME_MAX_FRAMES and (mask is None or mask.shape == (sq, sk)):
+    if mask is not None and mask.shape != (sq, sk):
+        raise ValueError(f"mask {tuple(mask.shape)} for attention over {sq}x{sk} tokens")
+    if sq == sk and sq <= attn_ops.FRAME_MAX_FRAMES and d in attn_ops.FRAME_HEAD_DIMS:
         return attn_ops.frame_attention(q, k, v, heads, mask=mask, layout="sf")
-    if mask is not None:
-        raise NotImplementedError(f"masked attention over {sq}x{sk} tokens: masks are "
-                                  f"frame-axis bands of at most {attn_ops.FRAME_MAX_FRAMES} frames")
     qh = q.view(b, sq, heads, d).transpose(1, 2)
     kh = k.view(b, sk, heads, d).transpose(1, 2)
     vh = v.view(b, sk, heads, d).transpose(1, 2)
-    out = attn_ops.flash_attention(qh, kh, vh)  # [B, H, Sq, D]
+    bias = None if mask is None else attn_ops.band_bias(mask).to(q.device)
+    out = attn_ops.flash_attention(qh, kh, vh, bias=bias)  # [B, H, Sq, D]
     return out.transpose(1, 2).reshape(b, sq, inner)
 
 
 def sdpa_frames(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention across the FRAME axis of frame-major [B, F, S, H*D] tokens,
-    with no re-layout (K2, natural layout)."""
-    return attn_ops.frame_attention(q, k, v, heads, mask=mask, layout="natural")
+    with no re-layout of q, k and v: K2 (natural layout) up to 64 frames.
+
+    Beyond 64 frames K1 takes the call, with the band mask (if any) as its
+    bias.  K1 reads [batch, head, seq, D] through one stride each, and the
+    natural layout's batch is two axes (B with stride F*S*H*D, the pixel S
+    with stride H*D), so each of the B entries launches K1 once on its
+    [S, H, F, D] view, read in place; only the output is laid back, by one
+    copy.  That spends B launches (B <= N+3 branches) instead of a re-layout
+    of all four tensors, and keeps K1's C interface at one batch stride."""
+    b, f, s, inner = q.shape
+    if f <= attn_ops.FRAME_MAX_FRAMES:
+        return attn_ops.frame_attention(q, k, v, heads, mask=mask, layout="natural")
+    d = inner // heads
+    bias = None if mask is None else attn_ops.band_bias(mask).to(q.device)
+
+    def view(t, i):  # entry i as [S, H, F, D]
+        return t[i].unflatten(-1, (heads, d)).permute(1, 2, 0, 3)
+
+    outs = [attn_ops.flash_attention(view(q, i), view(k, i), view(v, i), bias=bias)
+            for i in range(b)]
+    return torch.stack([o.permute(2, 0, 1, 3) for o in outs]).reshape(b, f, s, inner)
 
 
 class Attention(nn.Module):

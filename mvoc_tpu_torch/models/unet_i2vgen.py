@@ -6,15 +6,19 @@ keys.  Covers the per-frame 145-token context (77 text + 64 image-latent +
 embeddings, all down / mid / up blocks, and the PnP injection and capture
 sites of the up blocks.
 
-PnP capture: with `pnp_capture=True` (and a PnPState carrying the branch's
-capture weights) the forward returns `(eps, features)`, `features` being a
-plain dict site_id -> tensor or (q, k) that the forward filled (the flax
-package sows the same values into a mutable collection).
+PnP capture: with `pnp_capture=True` and a PnPState (carrying the branch's
+capture weights on the stream path; without them, over the N+1 source
+branches as one batch) the forward returns `(eps, features)`, `features`
+being a plain dict site_id -> tensor or (q, k) of the pre-composited S or
+one branch's term of it (the flax package sows the same values into a
+mutable collection).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Optional
 
 import torch
@@ -73,6 +77,27 @@ class UNetConfig:
         return channels // self.attention_head_dim
 
     @staticmethod
+    def from_diffusers_config(cfg: dict[str, Any]) -> "UNetConfig":
+        """The seven keys of a diffusers I2VGenXLUNet config.json that shape the
+        modules; the rest stay at their defaults (the transformer_in and
+        temporal-encoder head counts are diffusers constants, not config keys:
+        models/convert.py: infer_unet_geometry derives their head dims)."""
+        return UNetConfig(
+            in_channels=cfg.get("in_channels", 4),
+            out_channels=cfg.get("out_channels", 4),
+            block_out_channels=tuple(cfg.get("block_out_channels", (320, 640, 1280, 1280))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            cross_attention_dim=cfg.get("cross_attention_dim", 1024),
+            attention_head_dim=cfg.get("attention_head_dim", 64),
+        )
+
+    @staticmethod
+    def from_pretrained(checkpoint_dir: str) -> "UNetConfig":
+        with open(os.path.join(checkpoint_dir, "unet", "config.json")) as f:
+            return UNetConfig.from_diffusers_config(json.load(f))
+
+    @staticmethod
     def tiny() -> "UNetConfig":
         """Small config for tests."""
         return UNetConfig(block_out_channels=(8, 16, 32, 32), norm_num_groups=4,
@@ -83,23 +108,33 @@ class UNetConfig:
 # PnP edit / capture hooks
 # ---------------------------------------------------------------------------
 #
-# Three uses of an injection site: the fused path injects (pnp, no capture);
-# the stream path's source pass captures this branch's weighted term x * M_b
-# (pnp.capture_weight set, capture dict given); its edit pass consumes the
-# summed, pre-composited S (pnp.mode == "consume_pre").
+# Four uses of an injection site: the fused path injects (pnp, no capture);
+# the two-pass paths capture on the source branches and their edit pass
+# consumes the summed, pre-composited S (pnp.mode == "consume_pre").
+# two_pass=True captures S over the N+1 source branches as one batch
+# (pnp.capture_weight None: precomposite_*); the stream path captures one
+# branch at a time, its weighted term x * M_b (pnp.capture_weight set),
+# summed over the branches by the caller.
 
 
-def _need_stream(pnp):
-    if pnp is None or pnp.capture_weight is None:
-        raise ValueError("capture is the stream path's: it needs a PnPState with capture_weight")
+def _need_pnp(pnp):
+    if pnp is None:
+        raise ValueError("capture needs a PnPState: two_pass=True captures the pre-composited "
+                         "S, the stream path (capture_weight set) one branch's term of it")
+
+
+def _streamed(pnp) -> bool:
+    _need_pnp(pnp)
+    return pnp.capture_weight is not None
 
 
 def _spatial_qk_edit(pnp, h, w, site_id, rec):
     if rec is not None:
-        _need_stream(pnp)
+        stream = _streamed(pnp)
 
         def cap(q, k):
-            rec[site_id] = pnp_lib.stream_capture_spatial(q, k, pnp, h, w)
+            rec[site_id] = (pnp_lib.stream_capture_spatial(q, k, pnp, h, w) if stream
+                            else pnp_lib.precomposite_spatial(q, k, pnp, h, w))
             return q, k
         return cap
     if pnp is None:
@@ -114,10 +149,11 @@ def _temporal_qk_edit(pnp, h, w, site_id, rec, natural: bool):
     if natural:
         return _temporal_qk_edit_natural(pnp, h, w, site_id, rec)
     if rec is not None:
-        _need_stream(pnp)
+        stream = _streamed(pnp)
 
         def cap(q, k):
-            rec[site_id] = pnp_lib.stream_capture_temporal(q, k, pnp, h, w)
+            rec[site_id] = (pnp_lib.stream_capture_temporal(q, k, pnp, h, w) if stream
+                            else pnp_lib.precomposite_temporal(q, k, pnp, h, w))
             return q, k
         return cap
     if pnp is None:
@@ -141,12 +177,13 @@ def _temporal_qk_edit_natural(pnp, h, w, site_id, rec):
         return wrapped
 
     if rec is not None:
-        _need_stream(pnp)
+        stream = _streamed(pnp)
 
         def cap(q, k):
             B, f, hw, c = q.shape
-            rec[site_id] = pnp_lib.stream_capture_temporal_natural(
-                q.reshape(B * f, hw, c), k.reshape(B * f, hw, c), pnp, h, w)
+            q2, k2 = q.reshape(B * f, hw, c), k.reshape(B * f, hw, c)
+            rec[site_id] = (pnp_lib.stream_capture_temporal_natural(q2, k2, pnp, h, w) if stream
+                            else pnp_lib.precomposite_spatial(q2, k2, pnp, h, w, soft=True))
             return q, k
         return cap
     if pnp is None:
@@ -161,10 +198,11 @@ def _temporal_qk_edit_natural(pnp, h, w, site_id, rec):
 
 def _conv_edit(pnp, h, w, site_id, rec):
     if rec is not None:
-        _need_stream(pnp)
+        stream = _streamed(pnp)
 
         def cap(x):
-            rec[site_id] = pnp_lib.stream_capture_conv(x, pnp, h, w)
+            rec[site_id] = (pnp_lib.stream_capture_conv(x, pnp, h, w) if stream
+                            else pnp_lib.precomposite_conv(x, pnp, h, w))
             return x
         return cap
     if pnp is None:

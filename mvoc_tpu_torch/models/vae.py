@@ -8,7 +8,11 @@ an argument (draw it from an explicit torch.Generator)."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +33,23 @@ class VAEConfig:
     @property
     def downscale_factor(self) -> int:
         return 2 ** (len(self.block_out_channels) - 1)
+
+    @staticmethod
+    def from_diffusers_config(cfg: dict[str, Any]) -> "VAEConfig":
+        return VAEConfig(
+            in_channels=cfg.get("in_channels", 3),
+            out_channels=cfg.get("out_channels", 3),
+            block_out_channels=tuple(cfg.get("block_out_channels", (128, 256, 512, 512))),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            latent_channels=cfg.get("latent_channels", 4),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            scaling_factor=cfg.get("scaling_factor", 0.18215),
+        )
+
+    @staticmethod
+    def from_pretrained(checkpoint_dir: str) -> "VAEConfig":
+        with open(os.path.join(checkpoint_dir, "vae", "config.json")) as f:
+            return VAEConfig.from_diffusers_config(json.load(f))
 
     @staticmethod
     def tiny() -> "VAEConfig":
@@ -190,3 +211,50 @@ class AutoencoderKL(nn.Module):
 def sample_latents(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """DiagonalGaussianDistribution.sample with the noise passed in."""
     return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+
+def tiled_decode(decode_fn, z: torch.Tensor, tile_latent: int = 64,
+                 overlap_latent: int = 8) -> torch.Tensor:
+    """Spatially tiled VAE decode with linear seam blending (counterpart of
+    mvoc_tpu/models/vae.py: tiled_decode, the reference's enable_vae_tiling,
+    pipeline_i2vgen_xl.py:520-550).  `decode_fn(z_tile) -> rgb_tile` on
+    [B, h, w, C] latents.  Tiles of tile_latent start every tile_latent -
+    overlap_latent latents, the last clamped to the edge; each is weighted
+    by a linear ramp (+ 0.5 / k) over its overlapping borders, summed in
+    fp32 and divided by the summed weight (at least 1e-8).  The JAX
+    function decodes the first tile once more to learn the scale; here
+    that decode is the first tile itself."""
+    b, h, w, _ = z.shape
+    if h <= tile_latent and w <= tile_latent:
+        return decode_fn(z)
+    stride = tile_latent - overlap_latent
+    ys = sorted({min(y, max(h - tile_latent, 0))
+                 for y in range(0, max(h - overlap_latent, 1), stride)})
+    xs = sorted({min(x, max(w - tile_latent, 0))
+                 for x in range(0, max(w - overlap_latent, 1), stride)})
+    first = decode_fn(z[:, :min(tile_latent, h), :min(tile_latent, w)])
+    scale = first.shape[1] // min(tile_latent, h)
+    out = torch.zeros((b, h * scale, w * scale, first.shape[-1]), dtype=torch.float32,
+                      device=first.device)
+    weight = torch.zeros((1, h * scale, w * scale, 1), dtype=torch.float32, device=first.device)
+
+    def ramp(n, lo_blend, hi_blend):
+        wgt = np.ones(n, np.float32)
+        k = overlap_latent * scale
+        if lo_blend and k > 0:
+            wgt[:k] = np.linspace(0.0, 1.0, k, endpoint=False) + 0.5 / k
+        if hi_blend and k > 0:
+            wgt[-k:] = wgt[-k:] * (np.linspace(1.0, 0.0, k, endpoint=False) + 0.5 / k)
+        return wgt
+
+    for y in ys:
+        for x in xs:
+            th, tw = min(tile_latent, h - y), min(tile_latent, w - x)
+            tile = first if y == 0 and x == 0 else decode_fn(z[:, y:y + th, x:x + tw])
+            wy = ramp(th * scale, y > 0, y + th < h)
+            wx = ramp(tw * scale, x > 0, x + tw < w)
+            wgt = torch.as_tensor(np.outer(wy, wx), device=first.device)[None, :, :, None]
+            ys_, xs_ = slice(y * scale, (y + th) * scale), slice(x * scale, (x + tw) * scale)
+            out[:, ys_, xs_] += tile.float() * wgt
+            weight[:, ys_, xs_] += wgt
+    return (out / weight.clamp_min(1e-8)).to(first.dtype)

@@ -17,10 +17,12 @@ fallback to the plain version, and nothing here calls
 Dropped from the TPU kernels (TPU-only tuning, nothing to carry over):
 `FLASH_MIN_SEQ` (the TPU left sequences under 1024 to XLA; here every
 unmasked call takes K1 and every frame-axis call K2, so the plain versions
-stay off the card's path), `_pick_block`'s MXU-aligned divisors and the
-`MVOC_FLASH_BLOCK_Q/K` overrides (the CUDA kernel masks any ragged tail,
-its tiles are fixed per head dim), the 96 MB VMEM limits, and the head
-merge with a block-diagonal bias (`_head_group_size`, `_block_diag_bias`):
+stay off the card's path; a frame-axis call over more than 64 frames, which
+the TPU also left to XLA, takes K1 with the band as its bias),
+`_pick_block`'s MXU-aligned divisors and the `MVOC_FLASH_BLOCK_Q/K`
+overrides (the CUDA kernel masks any ragged tail, its tiles are fixed per
+head dim), the 96 MB VMEM limits, and the head merge with a block-diagonal
+bias (`_head_group_size`, `_block_diag_bias`):
 that merge filled the 128x128 MXU; on the card each head is computed on
 its own.
 """
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from collections import Counter
 from typing import Optional
 
@@ -40,13 +43,13 @@ NEG_BIG = -1e30  # finite mask value, never -inf (see csrc/common.cuh)
 
 LAUNCHES = {"flash_attention": 0, "frame_attention": 0}
 # launches per call signature, counted beside LAUNCHES: K1 (B, H, Sq, Sk, D,
-# dtype), K2 (layout, B, F, S, heads, D, dtype, masked)
+# dtype, biased), K2 (layout, B, F, S, heads, D, dtype, masked)
 LAUNCH_SHAPES: dict = {"flash_attention": Counter(), "frame_attention": Counter()}
 # launches per design (flash_variant / frame_variant names), counted beside LAUNCHES
 LAUNCH_VARIANTS: dict = {"flash_attention": Counter(), "frame_attention": Counter()}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_HEAD_DIMS = (64, 512)
+FLASH_HEAD_DIMS = (4, 64, 512)  # 4: the image-latents encoder over > 64 frames
 FRAME_HEAD_DIMS = (4, 64)
 FRAME_MAX_FRAMES = 64
 
@@ -72,14 +75,20 @@ def _require(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over [B, H, S, D], in the kernel's order:
-    q scaled once and rounded to its dtype, fp32 logits and statistics,
-    p rounded to the input dtype before the P.V product, divided by l last."""
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) + bias) v over [B, H, S, D], in the kernel's
+    order: q scaled once and rounded to its dtype, fp32 logits and
+    statistics, the optional fp32 bias [Sq, Sk] added to the scaled logits
+    and floored at -2e30 (below the kernel's initial running max, see
+    csrc/flash_attention.cu), p rounded to the input dtype before the P.V
+    product, divided by l last."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qs = (q.float() * scale).to(q.dtype).float()
     s = torch.matmul(qs, k.float().transpose(-1, -2))
+    if bias is not None:
+        s = (s + bias.to(s.device, torch.float32)).clamp_min(2 * NEG_BIG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -97,10 +106,11 @@ _TC_ALIGN = 16  # bytes: the tensor-core variants of K1 and K2 copy rows in 16-b
 def flash_variant(dtype: torch.dtype, d: int) -> str:
     """The K1 design a (dtype, head dim) takes on the card, the same every
     time: bf16 runs on the tensor cores (wgmma, D = 64 and 512); fp32 keeps
-    the SIMT kernel's exact fp32 FMAs (tensor cores would take it to TF32)."""
+    the SIMT kernel's exact fp32 FMAs (tensor cores would take it to TF32),
+    and D = 4 (the image-latents encoder) the SIMT kernel too."""
     _require(dtype in _DTYPE_CODE, f"flash_attention: dtype {dtype} not supported on CUDA")
     _require(d in FLASH_HEAD_DIMS, f"flash_attention: head dim {d} not in {FLASH_HEAD_DIMS}")
-    return "simt" if dtype == torch.float32 else "wgmma"
+    return "wgmma" if dtype == torch.bfloat16 and d != 4 else "simt"
 
 
 def flash_layout_error(name: str, shape, strides, ptr: int, itemsize: int,
@@ -120,14 +130,16 @@ def flash_layout_error(name: str, shape, strides, ptr: int, itemsize: int,
     return None
 
 
-def _flash_cuda(q, k, v, variant: Optional[str] = None) -> torch.Tensor:
+def _flash_cuda(q, k, v, variant: Optional[str] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     b, h, sq, d = q.shape
     sk = k.shape[2]
     default = flash_variant(q.dtype, d)  # also refuses an unsupported dtype or head dim
     variant = variant or default
     _require(variant in FLASH_VARIANTS, f"flash_attention: unknown variant {variant!r}")
-    _require(variant == "simt" or q.dtype == torch.bfloat16,
-             f"flash_attention: variant {variant} takes bf16, not {q.dtype}")
+    _require(variant == "simt" or (q.dtype == torch.bfloat16 and d != 4),
+             f"flash_attention: variant {variant} takes bf16 at D = 64 or 512, not {q.dtype} "
+             f"at {d}")
     _require(k.dtype == q.dtype and v.dtype == q.dtype, "flash_attention: q/k/v dtypes differ")
     _require(k.shape == (b, h, sk, d) and v.shape == (b, h, sk, d),
              f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} vs q {tuple(q.shape)}")
@@ -138,28 +150,57 @@ def _flash_cuda(q, k, v, variant: Optional[str] = None) -> torch.Tensor:
             name, t.shape, t.stride(), t.data_ptr(), t.element_size())
         if problem:
             raise ValueError(problem)
+    if bias is not None:
+        _require(bias.dtype == torch.float32 and tuple(bias.shape) == (sq, sk)
+                 and bias.is_contiguous() and bias.device == q.device,
+                 f"flash_attention: bias must be a contiguous fp32 [{sq}, {sk}] on {q.device}, "
+                 f"not {bias.dtype} {tuple(bias.shape)} on {bias.device}")
     # same [B, S, H, D] storage as the projections, viewed as [B, H, S, D]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    fn = _build.function("flash_attention", "mvoc_flash_attention", [ctypes.c_void_p] * 4 + [
+    fn = _build.function("flash_attention", "mvoc_flash_attention", [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), FLASH_VARIANTS[variant],
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if bias is None else bias.data_ptr(), FLASH_VARIANTS[variant],
              _DTYPE_CODE[q.dtype], b, h, sq, sk, d, strides, 1.0 / math.sqrt(d), _stream_ptr(q))
     _build.check("flash_attention", err, f"flash_attention launch ({variant})")
     LAUNCHES["flash_attention"] += 1
-    LAUNCH_SHAPES["flash_attention"][(b, h, sq, sk, d, str(q.dtype))] += 1
+    LAUNCH_SHAPES["flash_attention"][(b, h, sq, sk, d, str(q.dtype), bias is not None)] += 1
     LAUNCH_VARIANTS["flash_attention"][variant] += 1
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+# a weak reference to the last bias that passed _check_bias_rows
+_bias_checked: Optional[weakref.ref] = None
+
+
+def _check_bias_rows(bias: torch.Tensor) -> None:
+    """Refuse a bias with a row that keeps no key (every entry <= -1e30 / 2):
+    the designs differ there (the wgmma ones divide by l = 0, the SIMT one
+    and the plain version give the mean of v).  One reduction and one sync
+    per bias tensor: a bias passed again (sdpa_frames' B launches, a timing
+    loop) is not checked again, so a caller must not edit one in place."""
+    global _bias_checked
+    if _bias_checked is not None and _bias_checked() is bias:
+        return
+    _require(bool((bias.amax(dim=-1) > NEG_BIG / 2).all()),
+             "flash_attention: every bias row must keep a key (an entry above -5e29)")
+    _bias_checked = weakref.ref(bias)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1.  q [B, H, Sq, D], k/v [B, H, Sk, D] (any strides with a contiguous
-    head dim) -> [B, H, Sq, D].  CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    head dim) -> [B, H, Sq, D]; bias: optional fp32 [Sq, Sk] added to the
+    scaled logits of every (batch, head), -1e30 where masked (band_bias),
+    each row keeping at least one key (refused otherwise).
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if bias is not None:
+        _check_bias_rows(bias)
     if q.is_cuda:
-        return _flash_cuda(q, k, v)
-    return flash_attention_plain(q, k, v)
+        return _flash_cuda(q, k, v, bias=bias)
+    return flash_attention_plain(q, k, v, bias)
 
 
 # ---------------------------------------------------------------------------

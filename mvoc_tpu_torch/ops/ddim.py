@@ -13,9 +13,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
+
+from mvoc_tpu_torch.config import dataclass_from_json
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +35,15 @@ class SchedulerConfig:
     timestep_spacing: str = "leading"  # leading | trailing | linspace
     rescale_betas_zero_snr: bool = False
 
+    @staticmethod
+    def from_json(path: str) -> "SchedulerConfig":
+        """A diffusers scheduler_config.json; keys that are not fields are dropped."""
+        return dataclass_from_json(SchedulerConfig, path)
+
+    @staticmethod
+    def from_pretrained(checkpoint_dir: str) -> "SchedulerConfig":
+        return SchedulerConfig.from_json(
+            os.path.join(checkpoint_dir, "scheduler", "scheduler_config.json"))
 
 
 def _betas(cfg: SchedulerConfig) -> np.ndarray:

@@ -137,14 +137,17 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
     cond]; source branches take their inverted latents at the current t.
 
     two_pass=False runs all N+3 branches as one batch (fused).
+    two_pass=True captures the pre-composited site features S over the N+1
+    source branches as one batch, then the uncond/cond pair runs as a batch
+    of 2 consuming S: peak activation memory of max(N+1, 2) branches.
     two_pass="stream" runs the capture one source branch at a time (batch
     1): each branch's site terms x_b * M_b (weights from
-    pnp.build_capture_weights) are summed in place into the pre-composited
-    S, then the uncond/cond pair runs as a batch of 2 consuming S.  Same
-    function as the fused path; peak activation memory of one branch.
-    step_callback(i), when given, runs after each step (timing hooks)."""
-    if two_pass not in (False, "stream"):
-        raise NotImplementedError(f"two_pass={two_pass!r}: only False and 'stream' are ported")
+    pnp.build_capture_weights) are summed in place into S, then the pair
+    consumes it: peak activation memory of one branch.  All three are the
+    same function.  step_callback(i), when given, runs after each step
+    (timing hooks)."""
+    if two_pass not in (False, True, "stream"):
+        raise ValueError(f"two_pass={two_pass!r}: False (fused), True or 'stream'")
     stream = two_pass == "stream"
     if stream and capture_weights is None:
         raise ValueError("stream capture needs capture_weights")
@@ -172,16 +175,20 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
             gate_spatial=bool(sched.gate_spatial[i]), gate_temporal=bool(sched.gate_temporal[i]),
             gate_conv=bool(sched.gate_conv[i]), inject_background=inject_background)
 
-        if stream:
+        if two_pass:
             src_inp = torch.cat([bg_lat[None], obj_lat], dim=0)
-            feats = None
-            for b in range(n_obj + 1):
-                wgt = {kind: {res: w[b] for res, w in pyr.items()}
-                       for kind, pyr in capture_weights.items()}
-                _, f_b = unet(src_inp[b:b + 1], t, **cond.slice(b, b + 1).unet_kwargs(),
-                              pnp=dataclasses.replace(state, capture_weight=wgt),
-                              pnp_capture=True)
-                feats = _accumulate(feats, f_b)
+            if stream:
+                feats = None
+                for b in range(n_obj + 1):
+                    wgt = {kind: {res: w[b] for res, w in pyr.items()}
+                           for kind, pyr in capture_weights.items()}
+                    _, f_b = unet(src_inp[b:b + 1], t, **cond.slice(b, b + 1).unet_kwargs(),
+                                  pnp=dataclasses.replace(state, capture_weight=wgt),
+                                  pnp_capture=True)
+                    feats = _accumulate(feats, f_b)
+            else:
+                _, feats = unet(src_inp, t, **cond.slice(0, n_obj + 1).unet_kwargs(), pnp=state,
+                                pnp_capture=True)
             consume = dataclasses.replace(state, mode="consume_pre", features=feats)
             eps = unet(torch.stack([latents, latents]), t,
                        **cond.slice(n_obj + 1, n_obj + 3).unet_kwargs(), pnp=consume)

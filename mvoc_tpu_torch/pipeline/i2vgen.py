@@ -1,7 +1,8 @@
 """I2VGen-XL pipeline in PyTorch: host orchestration over the step loops
 (counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices ported so
-far: invert, sample (the reconstruction path), generate_background,
-sample_composite and the int8 mode, enable_int8).
+far: from_pretrained, invert, sample (the reconstruction path),
+generate_background, sample_composite, the int8 mode (enable_int8) and the
+tiled VAE decode (enable_vae_tiling)).
 
 The JAX package's extension keywords are accepted at their exact defaults
 (what its composite CLI always passes); any other value of a mode that is
@@ -27,7 +28,7 @@ from mvoc_tpu_torch.io import media
 from mvoc_tpu_torch.io.trajectory import TrajectoryStore
 from mvoc_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModelWithProjection, normalize_clip_image
 from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
-from mvoc_tpu_torch.models.vae import AutoencoderKL, sample_latents
+from mvoc_tpu_torch.models.vae import AutoencoderKL, sample_latents, tiled_decode
 from mvoc_tpu_torch.ops import quantize
 from mvoc_tpu_torch.ops.ddim import DDIM, SchedulerConfig, inversion_timesteps, sampling_timesteps
 from mvoc_tpu_torch.pipeline import core
@@ -72,6 +73,17 @@ class I2VGenXLPipeline:
         self.vae_scale_factor = vae.config.downscale_factor
         self.vae_scaling = vae.config.scaling_factor
         self.clip_image_size = image_encoder.config.image_size
+        self.vae_tiling: Optional[tuple[int, int]] = None  # set by enable_vae_tiling
+
+    @staticmethod
+    def from_pretrained(checkpoint_dir: str, dtype: torch.dtype = torch.bfloat16,
+                        device=None) -> "I2VGenXLPipeline":
+        """Build from a diffusers I2VGen-XL checkpoint directory (the layout
+        the reference loads), in `dtype` on `device` (CUDA unless asked
+        otherwise): models/convert.py: load_pipeline."""
+        from mvoc_tpu_torch.models import convert
+
+        return convert.load_pipeline(checkpoint_dir, dtype=dtype, device=device)
 
     def enable_int8(self, predicate=None, mode: str = "full") -> "I2VGenXLPipeline":
         """Quantize the UNet's dense and conv weights to int8 (w8a8), in place.
@@ -175,15 +187,29 @@ class I2VGenXLPipeline:
     @torch.inference_mode()
     def decode_latents(self, latents: torch.Tensor, decode_chunk_size: Optional[int] = 1
                        ) -> np.ndarray:
-        """[F, h, w, C] scaled latents -> video [F, H, W, 3] in [0, 1]."""
+        """[F, h, w, C] scaled latents -> video [F, H, W, 3] in [0, 1].
+
+        decode_chunk_size bounds the frames per VAE call (the reference
+        decodes one at a time); enable_vae_tiling also bounds the spatial
+        footprint of each call (tiled_decode inside each chunk)."""
         z = latents.to(self.device) / self.vae_scaling
         step = decode_chunk_size or z.shape[0]
-        img = torch.cat([self.vae.decode(z[i:i + step]) for i in range(0, z.shape[0], step)])
+
+        def dec(zz):
+            if self.vae_tiling is None:
+                return self.vae.decode(zz)
+            return tiled_decode(self.vae.decode, zz, *self.vae_tiling)
+
+        img = torch.cat([dec(z[i:i + step]) for i in range(0, z.shape[0], step)])
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0).cpu().numpy()
 
     def enable_vae_tiling(self, tile_latent: int = 64, overlap_latent: int = 8) -> None:
-        """Spatially tiled VAE decode: not ported yet."""
-        raise NotImplementedError("enable_vae_tiling is not ported yet (ROADMAP.md §1 item 6)")
+        """Route decode through spatially tiled decoding with seam blending
+        (reference parity: enable_vae_tiling, pipeline_i2vgen_xl.py:520-550)."""
+        self.vae_tiling = (tile_latent, overlap_latent)
+
+    def disable_vae_tiling(self) -> None:
+        self.vae_tiling = None
 
     def prepare_latents(self, num_frames: int, height: int, width: int,
                         generator: torch.Generator) -> torch.Tensor:
@@ -362,15 +388,11 @@ class I2VGenXLPipeline:
         capture_reuse_deep: bool = False):
         """Host-side preparation of sample_composite.  Returns (init_latents,
         cond, sched, masks_soft, pyr_bin, pyr_soft, capture_weights).  The
-        reuse and broadcast keywords run only at their exact defaults, and
-        two_pass only as False (fused) or "stream"."""
+        reuse and broadcast keywords run only at their exact defaults."""
         refuse_unported(encoder_reuse_interval=encoder_reuse_interval,
                         encoder_reuse_depth=encoder_reuse_depth, pab_interval=pab_interval,
                         capture_reuse_interval=capture_reuse_interval,
                         capture_reuse_deep=capture_reuse_deep)
-        if two_pass is True:
-            raise NotImplementedError("two_pass=True is not ported yet (ROADMAP.md §1 item 3); "
-                                      "mvoc_tpu_torch runs two_pass=False (fused) or 'stream'")
         self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
                           negative_prompt=negative_prompt,
                           negative_prompt_embeds=negative_prompt_embeds)
@@ -443,7 +465,8 @@ class I2VGenXLPipeline:
                          random_noise_ratio: float = 0.0, obj_random_noise_fusion: bool = False,
                          step_callback=None, **kwargs):
         """The MVOC composite sampler.  Same argument surface as
-        _prepare_composite; two_pass is False (fused) or "stream"."""
+        _prepare_composite; two_pass is False (fused), True (batched
+        capture, then consume) or "stream" (capture one branch at a time)."""
         (init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
          capture_weights) = self._prepare_composite(*args, **kwargs)
         final = core.pnp_composite_core(

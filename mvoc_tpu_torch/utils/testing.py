@@ -279,3 +279,215 @@ class ActivationTape:
             yield self
         finally:
             quantize._quantize_activation = orig
+
+
+# ---------------------------------------------------------------------------
+# synthetic diffusers checkpoint directories (the loader's tests and the
+# on-card smoke run: no real checkpoint is needed)
+# ---------------------------------------------------------------------------
+
+# {folder: (weight file, stored dtype)}: fp16
+# safetensors for the UNet and the image tower (the published checkpoint's
+# variant files), fp32 safetensors for the VAE, a torch .bin for the text
+# tower (the loader's other path)
+CHECKPOINT_FILES = {
+    "unet": ("diffusion_pytorch_model.fp16.safetensors", torch.float16),
+    "vae": ("diffusion_pytorch_model.safetensors", torch.float32),
+    "text_encoder": ("pytorch_model.bin", torch.float32),
+    "image_encoder": ("model.fp16.safetensors", torch.float16),
+}
+
+
+def diffusers_configs(unet_cfg: UNetConfig, vae_cfg: VAEConfig, text_cfg: CLIPTextConfig,
+                      vision_cfg: CLIPVisionConfig,
+                      sched_cfg: Optional[SchedulerConfig] = None) -> dict:
+    """{folder: config dict} in the published checkpoint's keys (diffusers
+    for unet/ vae/ scheduler/, HF transformers for the CLIP towers), with
+    some of the keys the loaders ignore, as the real files have them."""
+    import dataclasses
+
+    n = len(unet_cfg.block_out_channels)
+    n_vae = len(vae_cfg.block_out_channels)
+    sched = dataclasses.asdict(sched_cfg or SchedulerConfig())
+    return {
+        "unet": dict(_class_name="I2VGenXLUNet", _diffusers_version="0.25.0",
+                     in_channels=unet_cfg.in_channels, out_channels=unet_cfg.out_channels,
+                     block_out_channels=list(unet_cfg.block_out_channels),
+                     layers_per_block=unet_cfg.layers_per_block,
+                     norm_num_groups=unet_cfg.norm_num_groups,
+                     cross_attention_dim=unet_cfg.cross_attention_dim,
+                     attention_head_dim=unet_cfg.attention_head_dim, num_attention_heads=None,
+                     down_block_types=["CrossAttnDownBlock3D"] * (n - 1) + ["DownBlock3D"],
+                     up_block_types=["UpBlock3D"] + ["CrossAttnUpBlock3D"] * (n - 1),
+                     sample_size=32),
+        "vae": dict(_class_name="AutoencoderKL", _diffusers_version="0.25.0", act_fn="silu",
+                    in_channels=vae_cfg.in_channels, out_channels=vae_cfg.out_channels,
+                    block_out_channels=list(vae_cfg.block_out_channels),
+                    layers_per_block=vae_cfg.layers_per_block,
+                    latent_channels=vae_cfg.latent_channels,
+                    norm_num_groups=vae_cfg.norm_num_groups,
+                    scaling_factor=vae_cfg.scaling_factor,
+                    down_block_types=["DownEncoderBlock2D"] * n_vae,
+                    up_block_types=["UpDecoderBlock2D"] * n_vae, sample_size=768),
+        "text_encoder": dict(dataclasses.asdict(text_cfg), architectures=["CLIPTextModel"],
+                             model_type="clip_text_model", projection_dim=512,
+                             torch_dtype="float32"),
+        "image_encoder": dict(dataclasses.asdict(vision_cfg),
+                              architectures=["CLIPVisionModelWithProjection"],
+                              model_type="clip_vision_model", num_channels=3,
+                              torch_dtype="float16"),
+        "scheduler": dict(sched, _class_name="DDIMScheduler", _diffusers_version="0.25.0",
+                          thresholding=False, dynamic_thresholding_ratio=0.995),
+    }
+
+
+def learn_bpe_merges(corpus, n_merges: int) -> list[tuple[str, str]]:
+    """Up to n_merges CLIP-style merges learned from `corpus` (texts): the
+    most frequent adjacent symbol pair first, ties by the pair's text."""
+    from collections import Counter
+
+    from mvoc_tpu_torch.models.tokenizer import basic_clean, bytes_to_unicode, split_words
+
+    enc = bytes_to_unicode()
+    words = Counter()
+    for text in corpus:
+        for word in split_words(basic_clean(text)):
+            mapped = "".join(enc[b] for b in word.encode("utf-8"))
+            words[tuple(mapped[:-1]) + (mapped[-1] + "</w>",)] += 1
+    merges = []
+    while len(merges) < n_merges:
+        pairs = Counter()
+        for word, n in words.items():
+            for pair in zip(word[:-1], word[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        merged = Counter()
+        for word, n in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if i < len(word) - 1 and (word[i], word[i + 1]) == best:
+                    out.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    return merges
+
+
+def write_tokenizer(directory: str, corpus, n_merges: int = 200, pad_token: str = "!",
+                    model_max_length: int = 77) -> int:
+    """A CLIP tokenizer folder (vocab.json, merges.txt, tokenizer_config.json,
+    special_tokens_map.json) whose merges are learned from `corpus`: CLIP's
+    vocabulary layout (the 256 byte symbols, the same with "</w>", one
+    entry per merge, then <|startoftext|> and <|endoftext|>), the special
+    tokens as the published files give them (the pad token in
+    special_tokens_map.json over the config's).  Returns the vocabulary
+    size."""
+    import json
+
+    from mvoc_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    os.makedirs(directory, exist_ok=True)
+    merges = learn_bpe_merges(corpus, n_merges)
+    symbols = list(bytes_to_unicode().values())
+    tokens = symbols + [s + "</w>" for s in symbols] + ["".join(m) for m in merges]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    vocab = {}
+    for t in tokens:
+        vocab.setdefault(t, len(vocab))
+    with open(os.path.join(directory, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(directory, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+    def added(content):
+        return {"__type": "AddedToken", "content": content, "lstrip": False,
+                "normalized": True, "rstrip": False, "single_word": False}
+
+    special = {"bos_token": added("<|startoftext|>"), "eos_token": added("<|endoftext|>"),
+               "unk_token": added("<|endoftext|>")}
+    config = dict(special, pad_token="<|endoftext|>", model_max_length=model_max_length,
+                  do_lower_case=True, errors="replace", add_prefix_space=False,
+                  tokenizer_class="CLIPTokenizer")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    with open(os.path.join(directory, "special_tokens_map.json"), "w") as f:
+        json.dump(dict(special, pad_token=pad_token), f, indent=1)
+    return len(vocab)
+
+
+def template_prompts() -> list[str]:
+    """The non-empty prompts of the shipped templates and of their group
+    examples (the synthetic tokenizers' corpus)."""
+    import json
+
+    from mvoc_tpu_torch import config as cfglib
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "configs")
+    out = []
+
+    def walk(node):
+        for k in node:
+            v = node[k]
+            if hasattr(v, "keys"):
+                walk(v)
+            elif "prompt" in k and isinstance(v, str) and v not in ("", "ReplaceMe"):
+                out.append(v)
+
+    for kind in ("inversion", "composite"):
+        walk(cfglib.load(os.path.join(root, f"group_{kind}", "template.yaml")))
+        with open(os.path.join(root, f"group_{kind}", "group_config.example.json")) as f:
+            for entry in json.load(f):
+                walk(entry)
+    return sorted(set(out))
+
+
+def write_checkpoint_configs(root: str, configs: dict, corpus, n_merges: int) -> int:
+    """The non-weight files of a diffusers checkpoint directory under
+    `root`: each folder's config (`configs`, as diffusers_configs gives
+    them) and a tokenizer folder learned from `corpus`, its vocabulary
+    checked to fit the text tower's.  Returns the bytes written."""
+    import json
+
+    total = 0
+    for folder, cfg in configs.items():
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+        path = os.path.join(root, folder, "scheduler_config.json" if folder == "scheduler"
+                            else "config.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f, indent=1)
+        total += os.path.getsize(path)
+    text = configs["text_encoder"]
+    tok = os.path.join(root, "tokenizer")
+    vocab = write_tokenizer(tok, corpus, n_merges,
+                            model_max_length=text["max_position_embeddings"])
+    if vocab > text["vocab_size"]:
+        raise ValueError(f"synthetic vocabulary of {vocab} > the text tower's "
+                         f"{text['vocab_size']}")
+    return total + sum(os.path.getsize(os.path.join(tok, n)) for n in os.listdir(tok))
+
+
+def write_checkpoint(root: str, pipe: I2VGenXLPipeline, corpus=(), n_merges: int = 200) -> int:
+    """`pipe` as a diffusers I2VGen-XL checkpoint directory under `root`:
+    write_checkpoint_configs' files, then each model folder's weight file
+    as CHECKPOINT_FILES names and types it (safetensors written by
+    io/safetensors.py, .bin by torch.save).  Returns the bytes written."""
+    from mvoc_tpu_torch.io import safetensors
+
+    configs = diffusers_configs(pipe.unet.config, pipe.vae.config, pipe.text_encoder.config,
+                                pipe.image_encoder.config, pipe.scheduler_config)
+    total = write_checkpoint_configs(root, configs, corpus, n_merges)
+    for folder, (name, dtype) in CHECKPOINT_FILES.items():
+        sd = {k: v.to(dtype) for k, v in getattr(pipe, folder).state_dict().items()}
+        path = os.path.join(root, folder, name)
+        if name.endswith(".safetensors"):
+            safetensors.save_file(sd, path, metadata={"format": "pt"})
+        else:
+            torch.save({k: v.cpu() for k, v in sd.items()}, path)
+        total += os.path.getsize(path)
+    return total

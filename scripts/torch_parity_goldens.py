@@ -13,8 +13,10 @@ limit, so this script runs the JAX package once and stores, as numpy:
     of the stream path (per-branch capture summed over the source branches,
     then the batch-2 consume), with the summed site features;
   * a 3-step DDIM inversion (inputs and trajectory);
-  * a 3-step PnP composite (fused): the inputs JAX's own _prepare_composite
-    built from seeded frames, masks and trajectory stores, and the result;
+  * a 3-step PnP composite (fused, and two_pass=True: the batched capture
+    over the source branches, then the consume): the inputs JAX's own
+    _prepare_composite built from seeded frames, masks and trajectory
+    stores, and both results;
   * 3 steps of plain DDIM sampling (ddim_sampling_core: cfg 3.0, no cfg,
     and eta 0.5 with the noise passed in);
   * at a 5 x 9 latent (halvings 3 x 5, 2 x 3, 1 x 2, the 720p geometry in
@@ -297,6 +299,10 @@ def main() -> int:
     for (h, w), v in cps.items():
         out[f"composite/pyr_soft/{h}x{w}"] = np.asarray(v)
     out["composite/fused_out"] = np.asarray(fused)
+    out["composite/two_pass_out"] = np.asarray(core.pnp_composite_core(
+        pipe._unet_apply, pipe.ddim, params, init, ccond, sched, ms, cpb, cps,
+        num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
+        two_pass=True))
     with Tape(jq) as tape:
         out["composite/int8_fused_out"] = np.asarray(core.pnp_composite_core(
             pipe._unet_apply, pipe.ddim, qparams, init, ccond, sched, ms, cpb, cps,

@@ -1,6 +1,7 @@
 """K1 / K2 of mvoc_tpu_torch: the plain versions vs the JAX package's Pallas
-kernels (interpret mode).  The CUDA kernels vs the plain versions are in
-test_torch_kernels.py."""
+kernels (interpret mode), and frame-axis attention over more than 64 frames
+(K1 with the band as its bias) vs the JAX package's XLA attention.  The
+CUDA kernels vs the plain versions are in test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -8,9 +9,11 @@ import torch
 
 import jax.numpy as jnp
 
+from mvoc_tpu.models import layers as jl
 from mvoc_tpu.models.layers import _block_diag_bias, _head_group_size
 from mvoc_tpu.ops.attention import flash_attention as jax_flash
 from mvoc_tpu.ops.attention import frame_attention as jax_frame
+from mvoc_tpu_torch.models import layers as tl
 from mvoc_tpu_torch.ops import attention as tattn
 from torch_support import yield_cpu  # noqa: F401  (autouse: low CPU priority)
 
@@ -53,6 +56,53 @@ def test_frame_plain_matches_jax_kernel(layout, heads, f, window):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("fn", ["sdpa", "sdpa_frames"])
+@pytest.mark.parametrize("f,window", [(65, None), (65, 8), (130, None), (130, 9)])
+def test_frame_axis_over_64_frames_matches_jax(fn, f, window):
+    """Past K2's 64 frames the port takes K1 (the band as its bias), the JAX
+    package XLA attention with finfo.min: the same probabilities, since a
+    band keeps its diagonal.  sdpa: pixel-major [S, F, H*D]; sdpa_frames:
+    frame-major [B, F, S, H*D] with B = 2 (one K1 launch per entry)."""
+    heads, d, s = 2, 8, 6
+    rng = np.random.default_rng(f + (window or 0))
+    shape = (s, f, heads * d) if fn == "sdpa" else (2, f, s, heads * d)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    mask = None if window is None else _band(f, window)
+    want = np.asarray(getattr(jl, fn)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
+                                      mask=None if mask is None else jnp.asarray(mask)))
+    got = getattr(tl, fn)(*(torch.from_numpy(a) for a in (q, k, v)), heads,
+                          mask=None if mask is None else torch.from_numpy(mask)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_flash_plain_bias_masks_exactly():
+    """The plain K1 adds the bias to the scaled logits (floored at -2e30, as
+    the kernel does): each row is the softmax over its kept keys alone."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 70, 4)).astype(np.float32))
+               for _ in range(3))
+    band = torch.from_numpy(_band(70, 5))
+    got = tattn.flash_attention(q, k, v, bias=tattn.band_bias(band))
+    # each row over its kept keys only
+    for i in (0, 35, 69):
+        keep = band[i]
+        want = tattn.flash_attention_plain(q[:, :, i:i + 1], k[:, :, keep], v[:, :, keep])
+        torch.testing.assert_close(got[:, :, i:i + 1], want, rtol=0, atol=1e-6)
+
+
+def test_flash_refuses_bias_row_without_key():
+    """K1's designs disagree on a row whose keys are all masked, so the
+    wrapper refuses such a bias, on either device."""
+    x = torch.randn(1, 2, 6, 4)
+    bias = tattn.band_bias(torch.from_numpy(_band(6, 3)))
+    tattn.flash_attention(x, x, x, bias=bias)
+    bad = bias.clone()
+    bad[4] = tattn.NEG_BIG
+    with pytest.raises(ValueError, match="every bias row must keep a key"):
+        tattn.flash_attention(x, x, x, bias=bad)
+
+
 def test_wrappers_count_no_launch_on_cpu():
     tattn.reset_launch_counts()
     x = torch.randn(1, 2, 70, 64)
@@ -65,10 +115,12 @@ def test_wrappers_count_no_launch_on_cpu():
 @pytest.mark.parametrize("dtype,d,want", [(torch.bfloat16, 64, "wgmma"),
                                           (torch.bfloat16, 512, "wgmma"),
                                           (torch.float32, 64, "simt"),
-                                          (torch.float32, 512, "simt")])
+                                          (torch.float32, 512, "simt"),
+                                          (torch.bfloat16, 4, "simt"),
+                                          (torch.float32, 4, "simt")])
 def test_flash_variant_follows_dtype_and_head_dim(dtype, d, want):
     """K1's design on the card is a function of (dtype, head dim) alone:
-    bf16 on the tensor cores, fp32 on the exact-fp32 SIMT kernel."""
+    bf16 on the tensor cores, fp32 and D = 4 on the SIMT kernel."""
     assert tattn.flash_variant(dtype, d) == want
     assert want in tattn.FLASH_VARIANTS
 

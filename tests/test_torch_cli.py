@@ -11,7 +11,11 @@
 * every refusal of a mode that is not ported names its ROADMAP.md item;
   a missing checkpoint, an unknown quantize mode and a template without a
   CPU device on a machine without CUDA raise as the JAX CLI does (or, for
-  the device, as the port's entry points do).
+  the device, as the port's entry points do);
+* what used to be refused and is ported now: two_pass=True, the template's
+  enable_vae_tiling (argument parity with the JAX CLI), a checkpoint
+  directory (the pipeline both CLIs build from the tiny checkpoint), and
+  --mesh_seq / --mesh_job without a mesh size (passed through, as in JAX).
 """
 
 import argparse
@@ -38,7 +42,7 @@ from mvoc_tpu_torch.io.trajectory import TrajectoryStore
 from mvoc_tpu_torch.models.unet_i2vgen import UNetConfig
 from mvoc_tpu_torch.ops.ddim import SchedulerConfig, inversion_timesteps
 from mvoc_tpu_torch.utils import testing as tt
-from torch_support import ROOT
+from torch_support import ROOT, load_goldens, write_tiny_checkpoint
 from torch_support import yield_cpu  # noqa: F401  (autouse: low CPU priority)
 
 HW, F, STEPS = 16, 2, 4  # the tiny pipeline: 16 x 16 px, VAE x2 -> 8 x 8 latents
@@ -286,21 +290,80 @@ def test_invert_refuses_unported_modes(tiny_pipe, kw, item):
         tiny_pipe.invert(tt.tiny_frames(), height=HW, width=HW, num_frames=F, **kw)
 
 
+def _composite_inputs(root):
+    """Seeded trajectory stores (bg, 2 objects), frames and masks for a
+    tiny composite."""
+    ts = inversion_timesteps(SchedulerConfig(), STEPS)
+    rng = np.random.default_rng(4)
+    stores = []
+    for j in range(3):
+        d = os.path.join(root, f"traj{j}")
+        TrajectoryStore(d, prefer_native=False).save(
+            ts, rng.standard_normal((len(ts), F, HW // 2, HW // 2, 4)).astype(np.float32))
+        stores.append(TrajectoryStore(d))
+    masks = np.zeros((2, F, HW // 2, HW // 2), np.float32)
+    masks[0, :, :4] = 1.0
+    masks[1, :, :, :4] = 1.0
+    frames = tt.tiny_frames(seed=5)
+    return ("a cat", frames[0], frames, tt.tiny_frames(seed=0),
+            [tt.tiny_frames(seed=1), tt.tiny_frames(seed=2)], masks, masks, stores[0], stores[1:])
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"encoder_reuse_interval": 3}, 4), ({"encoder_reuse_depth": 2}, 4),
     ({"pab_interval": 2}, 4), ({"capture_reuse_interval": 2}, 4),
-    ({"capture_reuse_deep": True}, 4), ({"two_pass": True}, 3)])
-def test_sample_composite_refuses_unported_modes(tiny_pipe, kw, item):
+    ({"capture_reuse_deep": True}, 4), ({"two_pass": True}, None)])
+def test_sample_composite_refuses_unported_modes(tiny_pipe, tmp_path, kw, item):
+    """The reuse and broadcast modes stay refused; two_pass=True (item 3) is
+    ported and runs the fused path's function."""
+    if item is None:
+        args = _composite_inputs(str(tmp_path))
+        common = dict(height=HW, width=HW, num_frames=F, num_inference_steps=STEPS,
+                      guidance_scale=3.0, decode=False)
+        got = tiny_pipe.sample_composite(*args, **common, **kw)
+        fused = tiny_pipe.sample_composite(*args, **common, two_pass=False)
+        assert torch.isfinite(got).all()
+        assert (got - fused).abs().max() <= 1e-5 * fused.abs().max()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
         tiny_pipe.sample_composite("a cat", *([None] * 8), height=HW, width=HW, **kw)
 
 
-def test_vae_tiling_refused(demo, tiny_pipe):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tiny_pipe.enable_vae_tiling()
-    config = tcfg.create({"enable_vae_tiling": True})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcomposite.run_entry(tiny_pipe, config)
+class TilingRecorder(RecordingPipeline):
+    def enable_vae_tiling(self, *args, **kw):
+        self.calls.append(("enable_vae_tiling", None, dict(args=args, **kw)))
+
+
+def test_vae_tiling_refused(demo, tiny_pipe, tmp_path, monkeypatch):
+    """The template's enable_vae_tiling: both composite CLIs turn tiling on
+    with the same arguments before the same sample_composite call, and
+    write the same files; the port's pipeline then decodes through
+    tiled_decode (64-latent tiles, 8 of overlap, as in JAX)."""
+    root, paths = demo
+    template = tmp_path / "tiling.yaml"
+    with open(os.path.join(ROOT, "configs", "group_composite", "template.yaml")) as f:
+        template.write_text(f.read() + "\nenable_vae_tiling: true\n")
+    argv = ["--template_config", str(template), "--configs_json", paths["composite"]]
+    recorded = {}
+    for name, mod, cli in (("jax", jcommon, jcomposite), ("port", tcommon, tcomposite)):
+        _clear(root)
+        (_run_jax if name == "jax" else _run_port)(monkeypatch, demo, kinds=("inversion",))
+        pipe = TilingRecorder()
+        monkeypatch.setattr(mod, "build_pipeline", lambda args, t, pipe=pipe: pipe)
+        monkeypatch.setattr(mod, "apply_unet_options", lambda p, t: p)
+        if name == "jax":
+            monkeypatch.setattr(sys, "argv", ["prog"] + argv)
+            cli.main()
+        else:
+            cli.main(argv)
+        recorded[name] = (_recorded(pipe.calls), _files(root))
+    assert [c[0] for c in recorded["port"][0]] == ["enable_vae_tiling", "sample_composite"]
+    assert recorded["port"] == recorded["jax"]
+    pipe = copy.copy(tiny_pipe)
+    pipe.enable_vae_tiling()
+    assert pipe.vae_tiling == (64, 8)
+    pipe.disable_vae_tiling()
+    assert pipe.vae_tiling is None
 
 
 def _args(**kw):
@@ -314,7 +377,13 @@ def _args(**kw):
     ({"mesh": "2"}, {}), ({"mesh": "auto"}, {}), ({}, {"mesh_devices": 4}),
     ({"mesh_seq": 2}, {}), ({"mesh_job": 2}, {})])
 def test_mesh_refused(args, template):
+    """A mesh size stays refused (item 10); --mesh_seq / --mesh_job alone
+    leave the pipeline as it is, as the JAX CLI's apply_mesh does."""
     assert tcommon.apply_mesh("pipe", _args(), tcfg.create({})) == "pipe"
+    if "mesh" not in args and "mesh_devices" not in template:
+        assert jcommon.apply_mesh("pipe", _args(**args), jcfg.create(template)) == "pipe"
+        assert tcommon.apply_mesh("pipe", _args(**args), tcfg.create(template)) == "pipe"
+        return
     with pytest.raises(NotImplementedError, match="item 10"):
         tcommon.apply_mesh("pipe", _args(**args), tcfg.create(template))
 
@@ -340,7 +409,22 @@ def test_auto_reuse_refused(demo):
         tinverse.run(None, tinverse.configure(template, entries))
 
 
+def _dtype_name(dtype) -> str:
+    """torch.float32 / jnp.float32 -> "float32"."""
+    return str(dtype).split(".")[-1] if isinstance(dtype, torch.dtype) else np.dtype(dtype).name
+
+
 def test_checkpoint_errors(tmp_path, monkeypatch):
+    """A missing checkpoint raises as in JAX; a checkpoint directory (the
+    tiny one) reaches `I2VGenXLPipeline.from_pretrained` from both CLIs'
+    build_pipeline with the same directory and --dtype, and the port's
+    builds the pipeline on the template's device in that dtype, with the
+    checkpoint's tokenizer (the ids of transformers.CLIPTokenizer, which
+    the JAX loader uses).  Loader parity, tensor for tensor:
+    tests/test_torch_convert.py."""
+    from mvoc_tpu.pipeline.i2vgen import I2VGenXLPipeline as JPipe
+    from mvoc_tpu_torch.pipeline.i2vgen import I2VGenXLPipeline as TPipe
+
     template = tcfg.create({"device": "cpu"})
     missing = str(tmp_path / "nope")
     with pytest.raises(FileNotFoundError) as te:
@@ -348,8 +432,27 @@ def test_checkpoint_errors(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError) as je:
         jcommon.build_pipeline(_args(checkpoint=missing), jcfg.create({"device": "cpu"}))
     assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcommon.build_pipeline(_args(checkpoint=str(tmp_path)), template)
+    ckpt = str(tmp_path / "ckpt")
+    write_tiny_checkpoint(ckpt, load_goldens())
+    calls = {}
+    for name, cls, cfg in (("jax", JPipe, jcfg), ("port", TPipe, tcfg)):
+        for dtype in ("float32", "bfloat16"):
+            with monkeypatch.context() as m:
+                m.setattr(cls, "from_pretrained", staticmethod(
+                    lambda d, dtype, **kw: (os.path.abspath(d), _dtype_name(dtype))))
+                build = jcommon.build_pipeline if name == "jax" else tcommon.build_pipeline
+                calls[name, dtype] = build(_args(checkpoint=ckpt, dtype=dtype),
+                                           cfg.create({"device": "cpu"}))
+            assert calls[name, dtype] == (ckpt, dtype)
+    tpipe = tcommon.build_pipeline(_args(checkpoint=ckpt, dtype="float32"), template)
+    assert tpipe.device == torch.device("cpu") and tpipe.dtype == torch.float32
+    assert tpipe.unet.dtype == torch.float32
+    hf = pytest.importorskip("transformers").CLIPTokenizer.from_pretrained(
+        os.path.join(ckpt, "tokenizer"))
+    prompts = tt.template_prompts() + [""]
+    want = hf(prompts, padding="max_length", max_length=hf.model_max_length, truncation=True,
+              return_tensors="np")["input_ids"]
+    np.testing.assert_array_equal(tpipe.tokenize(prompts), want)
 
 
 def test_quantize_modes_and_errors():

@@ -1,4 +1,7 @@
-"""mvoc_tpu_torch and chip_smoke.py import nothing of JAX or the JAX package."""
+"""mvoc_tpu_torch and chip_smoke.py import nothing of JAX or the JAX package,
+nor the packages the JAX loader takes a checkpoint with (safetensors,
+transformers, regex, ftfy): the port carries its own safetensors reader and
+CLIP tokenizer."""
 
 import ast
 import os
@@ -7,7 +10,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "mvoc_tpu")
+FORBIDDEN = ("jax", "flax", "mvoc_tpu", "safetensors", "transformers", "regex", "ftfy")
 
 
 def _sources():
@@ -35,7 +38,7 @@ def test_package_imports_with_jax_blocked():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "mvoc_tpu_torch").rglob("*.py"))
-    code = ("import sys\nfor m in ('jax', 'flax', 'mvoc_tpu'): sys.modules[m] = None\n"
+    code = (f"import sys\nfor m in {FORBIDDEN!r}: sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('ok', len(sys.modules))\n")

@@ -268,6 +268,80 @@ def test_flash_tensor_core_path_refuses_misaligned_layouts(cuda_device):
     assert torch.equal(got, torch.ones_like(got))
 
 
+def _band_bias(device, f, window):
+    return tattn.band_bias(torch.from_numpy(_band(f, window)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dtype", [("wgmma", torch.bfloat16), ("simt", torch.bfloat16),
+                                           ("simt", torch.float32)])
+@pytest.mark.parametrize("f,window,d", [(65, None, 64), (65, 9, 64), (96, 9, 64), (96, 31, 64),
+                                        (200, 17, 64), (96, 9, 512)])
+def test_flash_bias_matches_plain(cuda_device, variant, dtype, f, window, d):
+    """K1 with the [F, F] band as its fp32 bias (frame-axis attention past
+    K2's 64 frames) against the plain version: the [B*S, H, F, D] view of
+    pixel-major tokens, every design; F = 96 spans two 64-key tiles, so rows
+    whose first key tile is all masked keep their running max at -1e30 (the
+    D = 512 design, 32-key tiles, as well)."""
+    g = torch.Generator(device=cuda_device).manual_seed(f)
+    s, h = 37, 5
+    q, k, v = (torch.randn(s, f, h * d, generator=g, device=cuda_device).to(dtype)
+               .view(s, f, h, d).transpose(1, 2) for _ in range(3))
+    bias = None if window is None else _band_bias(cuda_device, f, window)
+    got = tattn._flash_cuda(q, k, v, variant, bias=bias)
+    torch.cuda.synchronize()
+    want = tattn.flash_attention_plain(q.float(), k.float(), v.float(), bias)
+    tol = 2e-5 * want.abs().max().item() if dtype == torch.float32 \
+        else BF16_REL * want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,layout", [("sdpa", "sf"), ("sdpa_frames", "natural")])
+def test_frame_axis_over_64_frames_launches_k1(cuda_device, dtype, fn, layout):
+    """layers.sdpa / sdpa_frames at F = 96 with a temporal window band: K1
+    with the bias (natural layout: one launch per batch entry, q/k/v read in
+    place), D = 64 and the image-latents encoder's D = 4."""
+    from mvoc_tpu_torch.models import layers as tl
+
+    f, s, b = 96, 40, 2
+    for heads, d in ((5, 64), (2, 4)):
+        g = torch.Generator(device=cuda_device).manual_seed(heads)
+        shape = (s, f, heads * d) if layout == "sf" else (b, f, s, heads * d)
+        q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(3))
+        mask = torch.from_numpy(_band(f, 9)).to(cuda_device)
+        before = dict(tattn.LAUNCHES)
+        got = getattr(tl, fn)(q, k, v, heads, mask=mask)
+        torch.cuda.synchronize()
+        assert tattn.LAUNCHES["frame_attention"] == before["frame_attention"]
+        assert tattn.LAUNCHES["flash_attention"] == before["flash_attention"] + (
+            1 if layout == "sf" else b)
+        want = getattr(tl, fn)(q.float().cpu(), k.float().cpu(), v.float().cpu(), heads,
+                               mask=mask.cpu())
+        tol = (2e-5 if dtype == torch.float32 else BF16_REL) * want.abs().max().item()
+        assert (got.float().cpu() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_safetensors_round_trip_from_cuda(cuda_device, tmp_path):
+    """The port's safetensors writer takes CUDA tensors (copied to the host
+    one at a time) and its reader puts them back on the card, bit for bit."""
+    from mvoc_tpu_torch.io import safetensors as port_st
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ts = {"w": torch.randn(64, 33, generator=g, device=cuda_device).bfloat16(),
+          "b": torch.randn(33, generator=g, device=cuda_device).half(),
+          "s": torch.randn(5, generator=g, device=cuda_device),
+          "i": torch.arange(7, device=cuda_device)}
+    path = str(tmp_path / "t.safetensors")
+    port_st.save_file(ts, path)
+    back = port_st.load_file(path, device=cuda_device)
+    for k, v in ts.items():
+        assert back[k].is_cuda and back[k].dtype == v.dtype and torch.equal(back[k], v), k
+
+
 def test_bf16_tolerance_catches_a_dropped_key_tile():
     """At Sk = 14400 the plain version's own bf16 roundings stay inside the
     bound and an attention that drops one 64-key tile does not."""

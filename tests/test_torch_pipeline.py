@@ -3,10 +3,13 @@ same (noise-replaced) weights and the same inputs:
 
 * the weight bridge round-trips through mvoc_tpu.models.convert;
 * VAE encode / decode and both CLIP towers (live against JAX);
-* 3-step DDIM inversion, and the 3-step PnP composite (fused and stream)
-  against JAX's fused composite, on inputs the JAX pipeline's own
-  _prepare_composite built (JAX's stream path is held equal to its fused
-  path by tests/test_pipeline.py);
+* 3-step DDIM inversion, and the 3-step PnP composite (fused, stream and
+  two_pass=True) against JAX's fused and two_pass=True composites, on
+  inputs the JAX pipeline's own _prepare_composite built (JAX's stream path
+  is held equal to its fused path by tests/test_pipeline.py);
+* tiled_decode against the JAX function, both tiling one shared decode
+  function (the tiny VAE's decode, and a plain upsampling map) over a
+  ragged 13 x 21 latent;
 * the int8 path (enable_int8's "full" selection): the 3-step inversion and
   the 3-step composite, fused and stream, against JAX's int8 inversion and
   fused composite, replaying the JAX runs' tapes of int8 activations (see
@@ -213,25 +216,64 @@ def _composite(goldens, tpipe, unet, two_pass):
         torch.from_numpy(goldens["composite/masks_soft"]), pb, ps,
         num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
         two_pass=two_pass,
-        capture_weights=tp.build_capture_weights(pb, ps, True) if two_pass else None).numpy()
+        capture_weights=tp.build_capture_weights(pb, ps, True) if two_pass == "stream"
+        else None).numpy()
 
 
 @pytest.fixture(scope="module")
 def port_composites(goldens, tpipe):
-    """The port's composite, fused and stream."""
+    """The port's composite, fused, stream and two_pass=True."""
     return {two_pass: _composite(goldens, tpipe, tpipe.unet, two_pass)
-            for two_pass in (False, "stream")}
+            for two_pass in (False, "stream", True)}
 
 
-@pytest.mark.parametrize("two_pass", [False, "stream"])
+@pytest.mark.parametrize("two_pass", [False, "stream", True])
 def test_composite_core_3_steps(goldens, port_composites, two_pass):
+    """Each path against JAX's fused composite; two_pass=True also against
+    JAX's own two_pass=True run."""
     assert len(goldens["composite/sched/timesteps"]) == 3
     _check_core(port_composites[two_pass], goldens["composite/fused_out"])
+    if two_pass is True:
+        _check_core(port_composites[True], goldens["composite/two_pass_out"])
 
 
 def test_port_stream_equals_fused(port_composites):
     fused, stream = port_composites[False], port_composites["stream"]
     assert np.abs(fused - stream).max() <= CORE_REL * np.abs(fused).max()
+
+
+def test_port_two_pass_equals_fused(port_composites):
+    fused, two = port_composites[False], port_composites[True]
+    assert np.abs(fused - two).max() <= CORE_REL * np.abs(fused).max()
+
+
+def _upsample_map(z):  # [B, h, w, 4] -> [B, 2h, 2w, 3]: a plain decode stand-in
+    rgb = np.tanh(0.7 * z[..., :3] + z[..., 3:]).astype(np.float32)
+    return rgb.repeat(2, axis=1).repeat(2, axis=2)
+
+
+@pytest.mark.parametrize("fn", ["tiny_vae", "upsample"])
+def test_tiled_decode_matches_jax(tpipe, fn):
+    """One decode function (numpy in, numpy out) tiled by both packages'
+    tiled_decode over a ragged 13 x 21 latent (tile 8, overlap 2: clamped
+    edge tiles, ramps on every inner seam): the same placement, ramps and
+    fp32 blend; and a latent that fits one tile is decoded whole."""
+    if fn == "tiny_vae":
+        def shared(z):
+            with torch.no_grad():
+                return tpipe.vae.decode(torch.from_numpy(np.asarray(z))).numpy()
+    else:
+        shared = _upsample_map
+    z = np.random.default_rng(8).standard_normal((2, 13, 21, 4)).astype(np.float32)
+    want = np.asarray(jvae.tiled_decode(lambda t: jnp.asarray(shared(np.asarray(t))),
+                                        jnp.asarray(z), tile_latent=8, overlap_latent=2))
+    got = tvae.tiled_decode(lambda t: torch.from_numpy(shared(t.numpy())), torch.from_numpy(z),
+                            tile_latent=8, overlap_latent=2).numpy()
+    assert got.shape == want.shape == (2, 26, 42, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+    whole = tvae.tiled_decode(lambda t: torch.from_numpy(shared(t.numpy())),
+                              torch.from_numpy(z[:, :8, :8]), tile_latent=8)
+    np.testing.assert_array_equal(whole.numpy(), shared(z[:, :8, :8]))
 
 
 @pytest.fixture(scope="module")

@@ -185,3 +185,56 @@ def yield_cpu():
     """Imported by a test module, runs the whole module at low CPU priority."""
     with low_cpu_priority():
         yield
+
+
+# the tiny checkpoint's text tower: the goldens' tiny CLIP text params with a
+# token embedding wide enough for a CLIP-layout vocabulary (512 byte symbols,
+# the merges, two specials)
+TINY_TOKENIZER_MERGES = 60
+TINY_TEXT_VOCAB = 512 + TINY_TOKENIZER_MERGES + 2
+
+
+def write_tiny_checkpoint(root: str, goldens: dict) -> None:
+    """A tiny diffusers-layout I2VGen-XL directory from the goldens' seeded
+    flax leaves, carried across by the port's weight bridge: unet/ as fp32
+    and fp16 safetensors written by the `safetensors` package (the fp16
+    variant is the one both loaders must pick), vae/ by the port's own
+    writer, text_encoder/ as a torch .bin (with HF's position_ids buffer,
+    which both loaders drop), image_encoder/ by the `safetensors` package;
+    diffusers / HF config.json files, the scheduler config and a small
+    synthetic BPE tokenizer (pad token "!", as SD-2.x's special tokens map
+    has it)."""
+    import dataclasses
+
+    from safetensors.torch import save_file as st_save
+
+    from mvoc_tpu_torch.io import safetensors as port_st
+    from mvoc_tpu_torch.models import convert
+    from mvoc_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+    from mvoc_tpu_torch.models.unet_i2vgen import UNetConfig
+    from mvoc_tpu_torch.models.vae import VAEConfig
+    from mvoc_tpu_torch.ops.ddim import SchedulerConfig
+    from mvoc_tpu_torch.utils import testing as tt
+
+    text_params = nest(goldens, "pipe/text_encoder")
+    emb = text_params["token_embedding"]["embedding"]
+    rng = np.random.default_rng(77)
+    text_params["token_embedding"]["embedding"] = (
+        0.1 * rng.standard_normal((TINY_TEXT_VOCAB, emb.shape[1]))).astype(np.float32)
+    text_cfg = dataclasses.replace(CLIPTextConfig.tiny(), vocab_size=TINY_TEXT_VOCAB)
+    sched = SchedulerConfig(timestep_spacing="trailing", steps_offset=0)
+    configs = tt.diffusers_configs(UNetConfig.tiny(), VAEConfig.tiny(), text_cfg,
+                                   CLIPVisionConfig.tiny(), sched)
+    tt.write_checkpoint_configs(root, configs, tt.template_prompts(), TINY_TOKENIZER_MERGES)
+    unet = convert.unet_state_dict_from_flax(nest(goldens, "params"))
+    st_save(unet, os.path.join(root, "unet", "diffusion_pytorch_model.safetensors"))
+    st_save({k: v.half() for k, v in unet.items()},
+            os.path.join(root, "unet", "diffusion_pytorch_model.fp16.safetensors"))
+    port_st.save_file(convert.vae_state_dict_from_flax(nest(goldens, "pipe/vae")),
+                      os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"))
+    text = convert.clip_text_state_dict_from_flax(text_params)
+    text["text_model.embeddings.position_ids"] = torch.arange(
+        text_cfg.max_position_embeddings)[None]
+    torch.save(text, os.path.join(root, "text_encoder", "pytorch_model.bin"))
+    st_save(convert.clip_vision_state_dict_from_flax(nest(goldens, "pipe/image_encoder")),
+            os.path.join(root, "image_encoder", "model.safetensors"))
