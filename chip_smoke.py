@@ -2,7 +2,8 @@
 main paths (invert -> stream composite -> decode in bf16, then the same in
 int8, then a full-width diffusers checkpoint written, loaded and verified,
 then both CLIs from that checkpoint at the templates' 1280 x 720 and a tiled
-decode of their composite) at full I2VGen-XL width on one CUDA card, and
+decode of their composite, then both CLIs again with their entries batched)
+at full I2VGen-XL width on one CUDA card, and
 holds every kernel against its plain PyTorch version at every shape those
 runs launched it with.
 
@@ -70,8 +71,24 @@ Phases, in order (each failure ends the run with a non-zero exit):
      enable_vae_tiling() (6 tiles of 64 x 64 latents a frame, K1 at the
      VAE's [1, 1, 4096, 4096, 512]): its max difference from the untiled
      decode, both peaks, K1's launches;
+  7b. the batched CLIs, on phase 7's pipeline and demo tree: the three
+     videos' stores removed, cli.inverse.run with batching on (one batched
+     step loop of J = 3 videos, then bg's reconstruction), and
+     cli.composite.run with batching on over a group JSON of two entries
+     over the same sources (the second with another prompt and seed and the
+     objects' masks exchanged): one fused step loop of J = 2 entries, then
+     both exports; counts set to 0 just before and read just after, per
+     stage its wall time, K1 / K2 / K3 launches (K1, K2 > 0, K3 = 0) and
+     peak memory, and seconds per step, per video and per entry beside
+     phase 7's; the batched trajectories and final latents within TOL_BATCH
+     of max |x| of the sequential ones (phase 7's, and entry 1 through
+     sample_composite), and two planted faults inside the batch (the
+     entries' conditioning exchanged, their masks exchanged) beyond it;
+     then one steady batched step under torch.profiler, its trace booked
+     by utils.profiling.device_op_breakdown to kernel groups and UNet
+     modules;
   8. kernel phases: K1 and K2 at every distinct shape the bf16 slice and
-     the CLI phase and the tiled decode launched, plus a ragged 14400-token
+     the CLI phases and the tiled decode launched, plus a ragged 14400-token
      K1 case and K1 with the temporal-window band as its bias (F = 96 in
      both frame layouts, F = 160), each against its plain
      version computed in fp32 from the same bf16 inputs; K3 at every
@@ -136,6 +153,13 @@ TOL_S8 = 0.0
 # guidance.  Phase 3 also plants two faults (injection dropped, masks
 # swapped), which must land above it
 TOL_TWO_PASS = 0.1
+# batched vs sequential at 1280 x 720 through the CLIs (phase 7b), relative to
+# max |x|: the trajectories and final latents of the batched step loops
+# against the per-entry ones.  The same function, but cuBLAS / cuDNN pick
+# their algorithms by batch size, so the bf16 roundings differ as phase 3's
+# reordered sums do; two planted faults (the entries' conditioning or masks
+# exchanged inside the batch) must land above it
+TOL_BATCH = 0.1
 # K1 with the temporal-window band as its bias, (frame layout, pixels, heads,
 # F, window): F = 96 in both layouts at the 512 px level-0 geometry, F = 160
 # at level 1 (D = 64)
@@ -367,29 +391,27 @@ def one_step_inputs(pipe, videos, masks, stores, steps: int, seed: int, two_pass
     return init, cond, one, ms, pb, ps, cw
 
 
-# kernel-name fragments -> the group a steady step's device time is booked
-# under (first match wins; lower-cased names)
-KERNEL_GROUPS = (("flash_", "K1 flash attention"), ("frame_", "K2 frame attention"),
-                 ("s8_", "K3 s8 GEMM"), ("conv", "convolution"), ("fprop", "convolution"),
-                 ("implicit", "convolution"), ("gemm", "GEMM"), ("cutlass", "GEMM"),
-                 ("cublas", "GEMM"), ("nvjet", "GEMM"), ("norm", "normalisation"),
-                 ("reduce", "reductions"),
-                 ("copy", "copies and layout"), ("cat", "copies and layout"),
-                 ("elementwise", "elementwise"), ("vectorized", "elementwise"))
-
-
-def profile_step(run, tag: str) -> dict:
+def profile_step(run, tag: str, trace_dir=None) -> dict:
     """One composite step (`run`, warmed up first) under torch.profiler:
     its wall time, the device's busy time (the union of the kernels'
-    intervals) and idle share, and the device time by kernel group."""
+    intervals) and idle share, and the device time by kernel group; its
+    Chrome trace written to trace_dir/trace.json when given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from mvoc_tpu_torch.utils.profiling import UNET_SCOPE, kernel_group
 
     sync_time(run)
     _, wall_s = sync_time(run)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, prof_s = sync_time(run)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if trace_dir is not None:
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    # device kernels and copies, not the device lane's copies of the UNet's
+    # profiler scopes (user annotations)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(UNET_SCOPE)]
     if not kernels:
         log(f"{tag} profile: no device events (CUPTI gave none): not measured")
         return dict(wall_s=wall_s, device_busy_ms=None)
@@ -406,8 +428,7 @@ def profile_step(run, tag: str) -> dict:
     groups, names = {}, {}
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
-        low = e.name.lower()
-        group = next((g for frag, g in KERNEL_GROUPS if frag in low), "other")
+        group = kernel_group(e.name)
         groups[group] = groups.get(group, 0.0) + dur
         names[e.name] = names.get(e.name, 0.0) + dur
     out = dict(wall_s=wall_s, profiled_wall_s=prof_s, device_busy_ms=busy / 1e3,
@@ -542,26 +563,136 @@ def checkpoint_phase(seed: int, ckpt: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def run_clis(pipe, inv_cfgs, comp_cfgs, batch: bool, tag: str) -> dict:
+    """cli.inverse.run then cli.composite.run on `pipe` (batched when
+    `batch`), with every launch count set to 0 just before and read just
+    after; per CLI stage and per pipeline call (entry points, step loops,
+    decode, media I/O) its wall time, launches and peak device memory.
+    K1 and K2 must launch in every stage that runs the UNet, K3 in none."""
+    import contextlib
+
+    import torch
+
+    from mvoc_tpu_torch.cli import composite, inverse
+    from mvoc_tpu_torch.io import media
+    from mvoc_tpu_torch.pipeline import core
+    from mvoc_tpu_torch.utils.profiling import StepTimer
+
+    stages, peaks, calls, open_stages, step_s, finals = {}, {}, {}, [], [], []
+
+    class CountingTimer(StepTimer):
+        """StepTimer whose stages also record their kernel launches, their
+        calls and their peak device memory (nested stages included)."""
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            torch.cuda.synchronize()
+            before = read_counts()[0]
+            for n in open_stages:  # the peak so far belongs to every open stage
+                peaks[n] = max(peaks.get(n, 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            open_stages.append(name)
+            with super().stage(name):
+                yield
+                torch.cuda.synchronize()
+            open_stages.pop()
+            peak = torch.cuda.max_memory_allocated()
+            for n in open_stages + [name]:
+                peaks[n] = max(peaks.get(n, 0), peak)
+            stages[name] = {k: stages.get(name, {}).get(k, 0) + v
+                            for k, v in _minus(read_counts()[0], before).items()}
+            calls[name] = calls.get(name, 0) + 1
+
+    timer = CountingTimer()
+    last = [0.0]
+    loops = ("pnp_composite_core", "pnp_composite_batch_core")
+
+    def on_step(i):  # composite steps, synchronised
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        last[0] = now
+
+    def timed(owner, attr, name):
+        """owner.attr as a stage of the timer (sub-stages of the CLI stages:
+        the pipeline's entry points, its step loops and the VAE decode);
+        returns what undoes it."""
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, **kw):
+            if attr in loops:
+                kw["step_callback"] = on_step
+                torch.cuda.synchronize()
+                last[0] = time.perf_counter()
+            with timer.stage(name):
+                out = fn(*a, **kw)
+            if attr in loops:
+                finals.append(out)
+            return out
+
+        setattr(owner, attr, wrapped)
+        if owner is pipe:
+            return lambda: delattr(pipe, attr)
+        return lambda: setattr(owner, attr, fn)
+
+    # the host's share: frame loading and the exports
+    undo = [timed(pipe, attr, f"pipe.{attr}") for attr in (
+        "invert", "invert_batch", "sample", "sample_composite", "sample_composite_batch",
+        "decode_latents")]
+    undo += [timed(mod, attr, f"{mod.__name__.split('.')[-1]}.{attr}")
+             for mod, attr in ((core, "ddim_inversion_core"), (core, "ddim_inversion_batch_core"),
+                               (core, "ddim_sampling_core"), (core, "pnp_composite_core"),
+                               (core, "pnp_composite_batch_core"), (media, "load_video_frames"),
+                               (media, "export_to_video"), (media, "export_to_gif"),
+                               (composite, "_load_frame_dir"), (composite, "load_entry_masks"))]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        inverse.run(pipe, inv_cfgs, timer=timer, batch=batch)
+        composite.run(pipe, comp_cfgs, timer=timer, batch=batch)
+    finally:
+        total_s = time.perf_counter() - t0
+        launches, shapes = read_counts()
+        for u in undo:
+            u()
+    peak = max(peaks.values()) / 2**30
+    times = timer.summary()
+    for name, secs in times.items():
+        log(f"{tag} stage {name}: {secs:.2f} s wall over {calls[name]} call(s), peak memory "
+            f"{peaks[name] / 2**30:.2f} GiB, launches {stages[name]}")
+    log(f"{tag}: composite steps {[round(t, 3) for t in step_s]} s")
+    log(f"{tag}: both CLIs in {total_s:.1f} s; launches {launches}; peak device memory "
+        f"{peak:.2f} GiB; {card_line()}")
+    for name, n in stages.items():
+        if n["s8_matmul"] != 0:
+            raise RuntimeError(f"{tag} stage {name}: s8_matmul launched on the bf16 path")
+    # batched, the per-entry stages after the batch only reconstruct bg
+    ran_unet = [n for n in stages if n.startswith(("invert/", "composite/"))
+                and (not batch or n.endswith("/batched") or n == "invert/bg")]
+    for name in ran_unet:
+        n = stages[name]
+        if n["flash_attention"] <= 0 or n["frame_attention"] <= 0:
+            raise RuntimeError(f"{tag} stage {name}: K1 or K2 was never launched ({n})")
+    return dict(launches=launches, shapes=shapes, stages=stages, stage_s=times,
+                stage_calls=calls, stage_peak_gib={k: v / 2**30 for k, v in peaks.items()},
+                composite_step_s=step_s, total_s=total_s, peak_gib=peak, finals=finals)
+
+
 def cli_phase(steps: int, seed: int, ckpt: str, tmp: str) -> dict:
     """The inversion CLI (3 videos, the reconstruction round trip on bg) and
     the composite CLI (fused, N = 2) on a demo tree of 16-frame 1280 x 720
     videos, through the CLIs' own configure / build_pipeline (from the
     checkpoint directory `ckpt`) / apply_unet_options / apply_quantize /
-    run, with every launch count set to 0 just before and read just after;
-    wall time, launches and peak memory per CLI stage.  Then the
-    composite's final latents decoded again, tiled."""
-    import contextlib
-
+    run (run_clis).  Then the composite's final latents decoded again,
+    tiled.  The pipeline stays in the result for phase 7b."""
     import torch
-    from PIL import Image
 
     from mvoc_tpu_torch import config as cfglib
     from mvoc_tpu_torch.cli import common, composite, inverse
     from mvoc_tpu_torch.io import media
     from mvoc_tpu_torch.io.trajectory import NATIVE_NAME, STACK_NAME
-    from mvoc_tpu_torch.pipeline import core
     from mvoc_tpu_torch.utils import testing as tt
-    from mvoc_tpu_torch.utils.profiling import StepTimer
 
     width, height, nf = CLI_SIZE[0], CLI_SIZE[1], 16
     templates = {k: cfglib.load(os.path.join(ROOT, "configs", f"group_{k}", "template.yaml"))
@@ -594,93 +725,10 @@ def cli_phase(steps: int, seed: int, ckpt: str, tmp: str) -> dict:
             "without the mp4 (the CLIs themselves raise without OpenCV)")
         media.export_to_video = lambda frames, path, fps=8: path
 
-    stages, peaks, calls, open_stages, step_s, finals = {}, {}, {}, [], [], []
-
-    class CountingTimer(StepTimer):
-        """StepTimer whose stages also record their kernel launches, their
-        calls and their peak device memory (nested stages included)."""
-
-        @contextlib.contextmanager
-        def stage(self, name):
-            torch.cuda.synchronize()
-            before = read_counts()[0]
-            for n in open_stages:  # the peak so far belongs to every open stage
-                peaks[n] = max(peaks.get(n, 0), torch.cuda.max_memory_allocated())
-            torch.cuda.reset_peak_memory_stats()
-            open_stages.append(name)
-            with super().stage(name):
-                yield
-                torch.cuda.synchronize()
-            open_stages.pop()
-            peak = torch.cuda.max_memory_allocated()
-            for n in open_stages + [name]:
-                peaks[n] = max(peaks.get(n, 0), peak)
-            stages[name] = {k: stages.get(name, {}).get(k, 0) + v
-                            for k, v in _minus(read_counts()[0], before).items()}
-            calls[name] = calls.get(name, 0) + 1
-
-    timer = CountingTimer()
-    last = [0.0]
-
-    def on_step(i):  # composite steps, synchronised
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        step_s.append(now - last[0])
-        last[0] = now
-
-    def timed(owner, attr, name):
-        """owner.attr as a stage of the timer (sub-stages of the CLI stages:
-        the pipeline's entry points, its step loops and the VAE decode)."""
-        fn = getattr(owner, attr)
-
-        def wrapped(*a, **kw):
-            if attr == "pnp_composite_core":
-                kw["step_callback"] = on_step
-                torch.cuda.synchronize()
-                last[0] = time.perf_counter()
-            with timer.stage(name):
-                out = fn(*a, **kw)
-            if attr == "pnp_composite_core":
-                finals.append(out)
-            return out
-
-        setattr(owner, attr, wrapped)
-        return fn
-
-    for attr in ("invert", "sample", "sample_composite", "decode_latents"):
-        timed(pipe, attr, f"pipe.{attr}")
-    # the host's share: frame loading and the exports
-    originals = [(mod, attr, timed(mod, attr, f"{mod.__name__.split('.')[-1]}.{attr}"))
-                 for mod, attr in ((core, "ddim_inversion_core"), (core, "ddim_sampling_core"),
-                                   (core, "pnp_composite_core"), (media, "load_video_frames"),
-                                   (media, "export_to_video"), (media, "export_to_gif"),
-                                   (composite, "_load_frame_dir"), (composite, "load_entry_masks"))]
     inv_cfgs = inverse.configure(templates["inversion"], cfglib.load_json_list(paths["inversion"]))
     comp_cfgs = composite.configure(templates["composite"],
                                     cfglib.load_json_list(paths["composite"]))
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    inverse.run(pipe, inv_cfgs, timer=timer)
-    composite.run(pipe, comp_cfgs, timer=timer)
-    total_s = time.perf_counter() - t0
-    launches, shapes = read_counts()
-    for mod, attr, fn in originals:
-        setattr(mod, attr, fn)
-    peak = max(peaks.values()) / 2**30
-    times = timer.summary()
-    for name, secs in times.items():
-        log(f"cli stage {name}: {secs:.2f} s wall over {calls[name]} call(s), peak memory "
-            f"{peaks[name] / 2**30:.2f} GiB, launches {stages[name]}")
-    log(f"cli: composite steps {[round(t, 3) for t in step_s]} s")
-    log(f"cli: both CLIs in {total_s:.1f} s; launches {launches}; peak device memory "
-        f"{peak:.2f} GiB; {card_line()}")
-    for name, n in stages.items():
-        if n["s8_matmul"] != 0:
-            raise RuntimeError(f"cli stage {name}: s8_matmul launched on the bf16 path")
-        if name.startswith(("invert/", "composite/")) and (
-                n["flash_attention"] <= 0 or n["frame_attention"] <= 0):
-            raise RuntimeError(f"cli stage {name}: K1 or K2 was never launched ({n})")
+    run = run_clis(pipe, inv_cfgs, comp_cfgs, batch=False, tag="cli")
 
     containers = {}
     for cfg in inv_cfgs:
@@ -697,13 +745,29 @@ def cli_phase(steps: int, seed: int, ckpt: str, tmp: str) -> dict:
         f"SSIM {recon['ssim']:.4f}")
     if not all(math.isfinite(v) for v in recon.values()):
         raise RuntimeError(f"cli: non-finite reconstruction scores {recon}")
+    check_exports(comp_cfgs[0], nf, width, height, tmp,
+                  recon=[os.path.join(bg.output_dir, "ddim_reconstruction.gif")]
+                  + ([os.path.join(bg.output_dir, "ddim_reconstruction.mp4")]
+                     if media.cv2 is not None else []))
+    final = run.pop("finals")[-1]
+    tiled = tiled_decode_phase(pipe, final, nf, height, width)
+    return dict(run, containers=containers, recon=recon, frames=nf, mp4=media.cv2 is not None,
+                build_s=build_s, tiled=tiled, pipe=pipe, final=final, templates=templates,
+                paths=paths, inv_cfgs=inv_cfgs, comp_cfgs=comp_cfgs)
 
-    want = {"recon": [os.path.join(bg.output_dir, "ddim_reconstruction.gif")],
-            "composite": [os.path.join(composite.export_dir(comp_cfgs[0]), "video.gif")]}
+
+def check_exports(cfg, nf: int, width: int, height: int, tmp: str, recon=()) -> None:
+    """The files a composite entry (and a reconstruction) exported: 16
+    frames at the working size, the gif, and the mp4 when OpenCV exists."""
+    from PIL import Image
+
+    from mvoc_tpu_torch.cli import composite
+    from mvoc_tpu_torch.io import media
+
+    out_dir = composite.export_dir(cfg)
+    want = {"recon": list(recon), "composite": [os.path.join(out_dir, "video.gif")]}
     if media.cv2 is not None:
-        want["recon"].append(os.path.join(bg.output_dir, "ddim_reconstruction.mp4"))
-        want["composite"].append(os.path.join(composite.export_dir(comp_cfgs[0]), "video.mp4"))
-    out_dir = composite.export_dir(comp_cfgs[0])
+        want["composite"].append(os.path.join(out_dir, "video.mp4"))
     frames = sorted(f for f in os.listdir(out_dir) if f.startswith("video_") and f.endswith(".png"))
     sizes = {Image.open(os.path.join(out_dir, f)).size for f in frames}
     written = {k: [os.path.relpath(p, tmp) for p in v if os.path.exists(p)] for k, v in want.items()}
@@ -715,32 +779,179 @@ def cli_phase(steps: int, seed: int, ckpt: str, tmp: str) -> dict:
         for p in files:
             if not os.path.exists(p) or os.path.getsize(p) == 0:
                 raise RuntimeError(f"cli: {kind} output {p} missing")
-    if media.cv2 is not None:
-        for p in (want["recon"][1], want["composite"][1]):
-            cap = media.cv2.VideoCapture(p)
-            n, shape = 0, None
-            while True:
-                ok, fr = cap.read()
-                if not ok:
-                    break
-                n, shape = n + 1, fr.shape
-            cap.release()
-            log(f"cli: {os.path.relpath(p, tmp)} decodes to {n} frames of {shape}")
-            if n != nf or shape != (height, width, 3):
-                raise RuntimeError(f"cli: {p} holds {n} frames of {shape}")
+    for p in [f for f in want["recon"] + want["composite"] if f.endswith(".mp4")]:
+        cap = media.cv2.VideoCapture(p)
+        n, shape = 0, None
+        while True:
+            ok, fr = cap.read()
+            if not ok:
+                break
+            n, shape = n + 1, fr.shape
+        cap.release()
+        log(f"cli: {os.path.relpath(p, tmp)} decodes to {n} frames of {shape}")
+        if n != nf or shape != (height, width, 3):
+            raise RuntimeError(f"cli: {p} holds {n} frames of {shape}")
     gif = Image.open(want["composite"][0])
     if getattr(gif, "n_frames", 1) != nf or gif.size != (width, height):
         raise RuntimeError(f"cli: video.gif holds {getattr(gif, 'n_frames', 1)} frames of "
                            f"{gif.size}")
-    tiled = tiled_decode_phase(pipe, finals[-1], nf, height, width)
-    del pipe
-    torch.cuda.empty_cache()
-    return dict(launches=launches, shapes=shapes, stages=stages, stage_s=times,
-                stage_calls=calls, stage_peak_gib={k: v / 2**30 for k, v in peaks.items()},
-                composite_step_s=step_s, total_s=total_s, peak_gib=peak,
-                containers=containers, recon=recon, frames=len(frames),
-                mp4=media.cv2 is not None, build_s=build_s, tiled=tiled)
 
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    import torch
+
+    a, b = torch.as_tensor(a).float().cpu(), torch.as_tensor(b).float().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def batch_cli_phase(cli: dict, steps: int, tmp: str) -> dict:
+    """Phase 7b: both CLIs batched on phase 7's pipeline and demo tree.  The
+    three videos' stores removed, cli.inverse.run(batch=True) inverts them
+    in one batched step loop (J = 3), then reconstructs bg; a group JSON of
+    two composite entries over the same sources (the second with another
+    prompt and seed and the objects' masks exchanged) goes through
+    cli.composite.run(batch=True), the fused path at J = 2, and both
+    exports.  The batched trajectories and final latents must lie within
+    TOL_BATCH of max |x| of the sequential ones (phase 7's; entry 1's run
+    here through sample_composite), and two planted faults inside the batch
+    (the entries' conditioning exchanged; their masks exchanged) beyond it.
+    Last, one steady batched step under the profiler, booked by
+    device_op_breakdown to kernel groups and UNet modules."""
+    import json
+
+    from mvoc_tpu_torch import config as cfglib
+    from mvoc_tpu_torch.cli import composite, inverse
+    from mvoc_tpu_torch.io.trajectory import TrajectoryStore
+    from mvoc_tpu_torch.pipeline import core, i2vgen
+    from mvoc_tpu_torch.utils.profiling import OUTSIDE, device_op_breakdown
+
+    pipe, templates, paths = cli["pipe"], cli["templates"], cli["paths"]
+    width, height, nf = CLI_SIZE[0], CLI_SIZE[1], 16
+    seq_traj = {}
+    for cfg in cli["inv_cfgs"]:
+        store = TrajectoryStore(cfg.inverse_config.output_dir)
+        seq_traj[cfg.video_name] = store.gather(store.timesteps)
+        shutil.rmtree(cfg.inverse_config.output_dir)
+    with open(paths["composite"]) as f:
+        (entry,) = json.load(f)
+    second = dict(entry, editing_prompt="a yellow kayak and a swimmer on a lake", seed=11,
+                  edited_video_name="kayak and swimmer",
+                  obj_mask_path=list(reversed(entry["obj_mask_path"])))
+    batch_json = os.path.join(tmp, "group_composite_batch.json")
+    with open(batch_json, "w") as f:
+        json.dump([entry, second], f, indent=1)
+    inv_cfgs = inverse.configure(templates["inversion"], cfglib.load_json_list(paths["inversion"]))
+    comp_cfgs = composite.configure(templates["composite"], cfglib.load_json_list(batch_json))
+    log(f"cli-batched: {len(inv_cfgs)} videos with their stores removed; {len(comp_cfgs)} "
+        f"composite entries: {[c.editing_prompt for c in comp_cfgs]}, seeds "
+        f"{[c.get('seed', 6) for c in comp_cfgs]}, masks "
+        f"{[[os.path.basename(m) for m in c.obj_mask_path] for c in comp_cfgs]}")
+    run = run_clis(pipe, inv_cfgs, comp_cfgs, batch=True, tag="cli-batched")
+    for name in ("invert/batched", "composite/batched", "pipe.invert_batch",
+                 "pipe.sample_composite_batch"):
+        if run["stage_calls"].get(name) != 1:
+            raise RuntimeError(f"cli-batched: {name} ran {run['stage_calls'].get(name)} times")
+    for name in ("pipe.invert", "pipe.sample_composite"):
+        if name in run["stage_calls"]:
+            raise RuntimeError(f"cli-batched: {name} ran: the batch did not take every entry")
+    for cfg in comp_cfgs:
+        check_exports(cfg, nf, width, height, tmp)
+
+    # the gates: batched against sequential
+    gates = {}
+    for cfg in inv_cfgs:
+        store = TrajectoryStore(cfg.inverse_config.output_dir)
+        gates[f"trajectory {cfg.video_name}"] = _rel(store.gather(store.timesteps),
+                                                     seq_traj[cfg.video_name])
+    final = run.pop("finals")[-1]
+    inputs = [composite._entry_inputs(pipe, cfg) for cfg in comp_cfgs]
+    static = inputs[0][1]
+    seq_final = [cli["final"], pipe.sample_composite(**inputs[1][0], **static, decode=False)]
+    for e in range(2):
+        gates[f"final latents, entry {e}"] = _rel(final[e], seq_final[e])
+    prep = pipe._prepare_composite_batch([pe for pe, _, _ in inputs], **{
+        k: v for k, v in static.items()
+        if k not in ("decode_chunk_size", "random_noise_ratio", "obj_random_noise_fusion")})
+    init, cond, sched, ms, pb, ps, cw = prep
+    core_kw = i2vgen._composite_core_kwargs(static, static["random_noise_ratio"],
+                                            static["obj_random_noise_fusion"], None)
+    flip = lambda pyr: {r: m.flip(0) for r, m in pyr.items()}  # noqa: E731
+    faults = {
+        "conditioning exchanged": (core.UNetConditioning(*(
+            getattr(cond, f.name).flip(0) for f in dataclasses.fields(cond))), ms, pb, ps),
+        "masks exchanged": (cond, ms.flip(0), flip(pb), flip(ps)),
+    }
+    for name, (c, m, b, s) in faults.items():
+        out = core.pnp_composite_batch_core(pipe.unet, pipe.ddim, init, c, sched, m, b, s,
+                                            **core_kw)
+        for e in range(2):
+            gates[f"planted fault, {name}, entry {e}"] = _rel(out[e], seq_final[e])
+    for name, rel in gates.items():
+        fault = name.startswith("planted")
+        log(f"cli-batched: {name} vs sequential: {rel:.4g} of max |x| (gate {TOL_BATCH}, "
+            f"{'over' if fault else 'under'} it to pass)")
+        if not math.isfinite(rel):
+            raise RuntimeError(f"cli-batched: {name} non-finite")
+        if fault and not rel > TOL_BATCH:
+            raise RuntimeError(f"cli-batched: {name} within the gate: it cannot see the fault")
+        if not fault and not rel <= TOL_BATCH:
+            raise RuntimeError(f"cli-batched: {name} is {rel:.4g} from the sequential run")
+
+    # seconds per step, per video and per entry, beside phase 7's
+    st, seq = run["stage_s"], cli["stage_s"]
+    n_comp = steps - 1
+    per = dict(
+        invert_step_s=st["core.ddim_inversion_batch_core"] / steps,
+        invert_step_s_sequential=seq["core.ddim_inversion_core"] / (steps * len(inv_cfgs)),
+        invert_per_video_s=st["pipe.invert_batch"] / len(inv_cfgs),
+        invert_per_video_s_sequential=seq["pipe.invert"] / len(inv_cfgs),
+        composite_step_s=st["core.pnp_composite_batch_core"] / n_comp,
+        composite_step_s_sequential=seq["core.pnp_composite_core"] / n_comp,
+        composite_per_entry_s=st["pipe.sample_composite_batch"] / len(comp_cfgs),
+        composite_per_entry_s_sequential=seq["pipe.sample_composite"],
+        composite_stage_per_entry_s=st["composite/batched"] / len(comp_cfgs),
+        composite_stage_per_entry_s_sequential=sum(
+            v for k, v in seq.items() if k.startswith("composite/")))
+    log(f"cli-batched vs sequential (phase 7): inversion {per['invert_step_s']:.3f} s a batched "
+        f"step of {len(inv_cfgs)} videos vs {per['invert_step_s_sequential']:.3f} s a step of "
+        f"one; per video {per['invert_per_video_s']:.2f} s vs "
+        f"{per['invert_per_video_s_sequential']:.2f} s (pipe.invert*); composite "
+        f"{per['composite_step_s']:.3f} s a batched step of {len(comp_cfgs)} entries vs "
+        f"{per['composite_step_s_sequential']:.3f} s a step of one; per entry "
+        f"{per['composite_per_entry_s']:.2f} s vs {per['composite_per_entry_s_sequential']:.2f} "
+        f"s (pipe.sample_composite*), {per['composite_stage_per_entry_s']:.2f} s vs "
+        f"{per['composite_stage_per_entry_s_sequential']:.2f} s with the exports")
+
+    # one steady batched step, by kernel group and by UNet module
+    one = dataclasses.replace(sched, **{f.name: getattr(sched, f.name)[:, :1]
+                                        for f in dataclasses.fields(sched)
+                                        if f.name != "obj_fusion_lat"})
+
+    def step():
+        return core.pnp_composite_batch_core(pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps,
+                                             **core_kw)
+
+    with tempfile.TemporaryDirectory(prefix="mvoc_smoke_trace_") as trace_dir:
+        profile = profile_step(step, "cli-batched", trace_dir=trace_dir)
+        breakdown = device_op_breakdown(trace_dir)
+    total = breakdown["total_s"]
+    cross = breakdown["by_module_category"]
+    elem = breakdown["by_category"].get("elementwise", 0.0)
+    elem_in = sum(v.get("elementwise", 0.0) for m, v in cross.items() if m != OUTSIDE)
+    unet_share = 1.0 - breakdown["by_module"].get(OUTSIDE, 0.0) / total
+    log(f"cli-batched: one steady batched step (J = 2, fused, {width}x{height}) by "
+        f"device_op_breakdown: {1e3 * total:.1f} ms of device time; by module (ms) "
+        f"{ {k: round(1e3 * v, 2) for k, v in breakdown['by_module'].items()} }; by group (ms) "
+        f"{ {k: round(1e3 * v, 2) for k, v in breakdown['by_category'].items()} }; elementwise "
+        f"{1e3 * elem:.1f} ms, {elem_in / elem if elem else 0.0:.4f} of it booked to UNet "
+        f"modules; all device time booked to UNet modules: {unet_share:.4f}")
+    log(f"cli-batched: elementwise ms by module "
+        f"{ {m: round(1e3 * v.get('elementwise', 0.0), 2) for m, v in cross.items()} }")
+    breakdown.pop("trace")
+    return dict(run, gates=gates, per=per, profile=profile, breakdown=breakdown,
+                elementwise_booked_share=elem_in / elem if elem else None,
+                unet_share=unet_share)
 
 def tiled_decode_phase(pipe, final, nf: int, height: int, width: int) -> dict:
     """The composite's final latents decoded as the CLI did (untiled, one
@@ -1346,6 +1557,11 @@ def main() -> int:
             tempfile.TemporaryDirectory(prefix="mvoc_smoke_cli_") as cli_root:
         ckpt = checkpoint_phase(args.seed, os.path.join(ckpt_root, "i2vgen-xl"))
         cli = cli_phase(args.steps, args.seed, ckpt["dir"], cli_root)
+        # 7b. both CLIs batched, on the same pipeline and demo tree
+        cli_b = batch_cli_phase(cli, args.steps, cli_root)
+        for key in ("pipe", "final", "templates", "paths", "inv_cfgs", "comp_cfgs"):
+            cli.pop(key)
+        torch.cuda.empty_cache()
 
     # 8. kernel phases at every shape the paths launched (+ ragged cases)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1355,7 +1571,8 @@ def main() -> int:
     attn_shapes = {}
     for name in ("flash_attention", "frame_attention"):
         attn_shapes[name] = dict(bf16["shapes"][name])
-        for sig in list(cli["shapes"][name]) + list(cli["tiled"]["shapes"][name]):
+        for sig in (list(cli["shapes"][name]) + list(cli["tiled"]["shapes"][name])
+                    + list(cli_b["shapes"][name])):
             attn_shapes[name].setdefault(sig, 0)
     plans = (
         ("flash_attention", flash_phase, attn_shapes["flash_attention"],
@@ -1372,6 +1589,7 @@ def main() -> int:
             row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
                        cli_launches=cli["shapes"].get(name, {}).get(sig, 0),
+                       cli_batch_launches=cli_b["shapes"].get(name, {}).get(sig, 0),
                        tiled_launches=cli["tiled"]["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
@@ -1396,6 +1614,7 @@ def main() -> int:
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
                 f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}, "
+                f"batched-CLI launches {row['cli_batch_launches']}, "
                 f"tiled-decode launches {row['tiled_launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
@@ -1453,13 +1672,15 @@ def main() -> int:
             checkpoint={k: v for k, v in ckpt.items() if k not in ("root", "dir")},
             cli=dict({k: v for k, v in cli.items() if k not in ("shapes", "tiled")},
                      tiled={k: v for k, v in cli["tiled"].items() if k != "shapes"}),
+            cli_batched={k: v for k, v in cli_b.items() if k != "shapes"},
             phases=table), f, indent=1)
 
     # one row per kernel, from this slice's path that launched it (K1, K2:
     # the CLIs at 1280 x 720; K3: the int8-mixed path), with the launches of
     # every path; the row's times at the shape that path spends most on
     by_path = {"bf16": bf16["launches"], "int8-mixed": int8["launches"],
-               "int8-full-step": full_launch, "cli": cli["launches"]}
+               "int8-full-step": full_launch, "cli": cli["launches"],
+               "cli-batched": cli_b["launches"]}
     count_key = {"flash_attention": "cli_launches", "frame_attention": "cli_launches",
                  "s8_matmul": "launches"}
     kernels = []

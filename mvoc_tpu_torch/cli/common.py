@@ -7,8 +7,8 @@ overrides, `active` flags, `ReplaceMe` sentinels, so the reference's own
 config files run unchanged.  The template's `device` key picks the torch
 device when it names one (`cpu`, `cuda`, `cuda:N`); anything else (the
 shipped templates say "tpu") means CUDA, and without CUDA the CLIs raise:
-there is no fall-back to the CPU.  Options of the JAX CLIs whose modes are
-not ported yet raise NotImplementedError naming their ROADMAP.md item.
+there is no fall-back to the CPU.  The device mesh, not ported yet, raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def parse_args(default_template: str, argv=None):
     )
     p.add_argument(
         "--batch", action="store_true",
-        help="batch same-signature entries as one program (not ported yet: "
-        "ROADMAP.md item 8)",
+        help="run same-signature entries as one batched step loop (the template's "
+        "batch_inversions / batch_composites do the same)",
     )
     p.add_argument(
         "--mesh_seq", type=int, default=None,
@@ -104,14 +104,6 @@ def build_pipeline(args, template_cfg):
     from mvoc_tpu_torch.pipeline.i2vgen import I2VGenXLPipeline
 
     return I2VGenXLPipeline.from_pretrained(ckpt, dtype=dtype, device=device)
-
-
-def check_unported_options(args, template_cfg, batch_key: str) -> None:
-    """Refuse the JAX CLI options whose modes are not ported: --batch or the
-    template's `batch_key` (item 8)."""
-    if args.batch or template_cfg.get(batch_key, False):
-        raise NotImplementedError(
-            f"--batch / {batch_key} is not ported yet (ROADMAP.md §1 item 8: batch entry points)")
 
 
 def apply_mesh(pipe, args, template_cfg):

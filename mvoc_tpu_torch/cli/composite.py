@@ -10,9 +10,11 @@ Usage (the reference's surface, reference: composite.py:227-255):
 Per active entry: resolve the paths, load the edited first frame, the
 per-branch control frames, the masks and the inversion trajectories, run the
 PnP composite sampler, and export mp4 / gif / frames into a
-parameter-encoded directory (reference: composite.py:72-224).  `configure`
-(merge, paths, ReplaceMe check) and `run` (the work, on a given pipeline)
-are the two halves of `main`.
+parameter-encoded directory (reference: composite.py:72-224).  With
+--batch (or the template's batch_composites) the entries that share a
+batching signature are composited together in one batched step loop
+(`run_batched`).  `configure` (merge, paths, ReplaceMe check) and `run`
+(the work, on a given pipeline) are the two halves of `main`.
 """
 
 from __future__ import annotations
@@ -79,9 +81,11 @@ def load_entry_masks(config, image_size, n_frames: int, vae_scale: int = 8):
 
 
 def _entry_inputs(pipe, config):
-    """(per_entry, static): the sample_composite arguments of one entry,
-    split as the JAX CLI splits them (per-entry inputs; knobs that shape
-    the program)."""
+    """(per_entry, static, key): the sample_composite arguments of one
+    entry, split as the JAX CLI splits them (per-entry inputs; knobs that
+    every entry of a batched group shares), and the group's signature, the
+    JAX CLI's: the shapes and every static knob but target_fps (so a
+    batched group runs at its first entry's fps, as in JAX)."""
     image_size = tuple(config.image_size)
     n_frames = config.n_frames
 
@@ -141,7 +145,11 @@ def _entry_inputs(pipe, config):
         # pipeline_i2vgen_xl.py:771-791); 0/None decodes the full batch
         decode_chunk_size=config.get("decode_chunk_size", 1) or None,
     )
-    return per_entry, static
+    key = (image_size, n_frames, len(per_entry["obj_stores"])) + tuple(
+        (k, tuple(v) if isinstance(v, list) else v)
+        for k, v in sorted(static.items())
+        if k not in ("target_fps",))
+    return per_entry, static, key
 
 
 def export_dir(config) -> str:
@@ -173,9 +181,35 @@ def run_entry(pipe, config) -> None:
     if config.get("enable_vae_tiling", False):
         # reference parity memory knob (pipeline_i2vgen_xl.py:520-550)
         pipe.enable_vae_tiling()
-    per_entry, static = _entry_inputs(pipe, config)
+    per_entry, static, _ = _entry_inputs(pipe, config)
     video = pipe.sample_composite(**per_entry, **static)
     _export_video(video, config)
+
+
+def run_batched(pipe, configs) -> list:
+    """Composite the entries that share a batching signature in one batched
+    step loop (pipe.sample_composite_batch, the entries on the UNet batch
+    axis; the reference loops entries one by one, composite.py:87), with
+    the first entry's static knobs.  Groups of one are left to run_entry.
+    Returns the configs handled."""
+    groups: dict = {}
+    for config in configs:
+        per_entry, static, key = _entry_inputs(pipe, config)
+        groups.setdefault(key, []).append((config, per_entry, static))
+
+    done = []
+    for group in groups.values():
+        if len(group) < 2:
+            continue  # nothing to batch: run_entry composites it
+        if any(c.get("enable_vae_tiling", False) for c, _, _ in group):
+            pipe.enable_vae_tiling()
+        logger.info("batched composite of %d entries: %s", len(group),
+                    [c.get("edited_video_name", c.video_name) for c, _, _ in group])
+        videos = pipe.sample_composite_batch([pe for _, pe, _ in group], **group[0][2])
+        for (config, _, _), video in zip(group, videos):
+            _export_video(video, config)
+            done.append(config)
+    return done
 
 
 def configure(template, entries) -> list:
@@ -207,12 +241,22 @@ def configure(template, entries) -> list:
     return configs
 
 
-def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None) -> StepTimer:
+def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None,
+        batch: bool = False) -> StepTimer:
     """Composite every configured entry on `pipe`, one stage of `timer` per
-    entry.  Returns the timer."""
+    entry; with `batch`, the entries that share a batching signature go
+    through one batched step loop instead (stage "composite/batched").
+    Returns the timer."""
     timer = timer or StepTimer()
+    handled = []
     with trace(profile_dir):
+        if batch and len(configs) > 1:
+            with timer.stage("composite/batched"):
+                handled = run_batched(pipe, configs)
         for config in configs:
+            if any(config is c for c in handled):
+                save_run_config(config, config.output_dir)
+                continue
             name = config.get("edited_video_name", config.video_name)
             logger.info("processing %s", name)
             with timer.stage(f"composite/{name}"):
@@ -226,12 +270,12 @@ def main(argv=None) -> None:
     args = common.parse_args("configs/group_composite/template.yaml", argv)
     template, entries = common.load_configs(args)
     common.setup_logging(template)
-    common.check_unported_options(args, template, "batch_composites")
     pipe = common.build_pipeline(args, template)
     pipe = common.apply_unet_options(pipe, template)
     pipe = common.apply_mesh(pipe, args, template)
     pipe = common.apply_quantize(pipe, template)
-    run(pipe, configure(template, entries), args.profile_dir)
+    run(pipe, configure(template, entries), args.profile_dir,
+        batch=args.batch or template.get("batch_composites", False))
 
 
 if __name__ == "__main__":

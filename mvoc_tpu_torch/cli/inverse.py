@@ -10,8 +10,11 @@ Usage (the reference's surface, reference: inverse.py:230-255):
 Per active entry: load (or extract) the frames, DDIM-invert them and save
 the trajectory store, then, when recon_config.enable_recon, run the
 reconstruction round trip and score it with PSNR / SSIM (reference:
-inverse.py:111-227).  `configure` (merge, paths, ReplaceMe check) and `run`
-(the work, on a given pipeline) are the two halves of `main`.
+inverse.py:111-227).  With --batch (or the template's batch_inversions)
+the uncached entries that share their settings are first inverted together
+in one batched step loop (`run_batched`).  `configure` (merge, paths,
+ReplaceMe check) and `run` (the work, on a given pipeline) are the two
+halves of `main`.
 """
 
 from __future__ import annotations
@@ -78,6 +81,48 @@ def _has_valid_cache(config) -> bool:
                        "config — recomputing", out_dir)
         has_cache = False
     return has_cache and not config.get("force_recompute_latents", False)
+
+
+def run_batched(pipe, configs) -> None:
+    """Invert the uncached entries that share an inversion signature in one
+    batched step loop (pipe.invert_batch, the videos on the UNet batch
+    axis); groups of one, and entries with cfg != 1, are left to the
+    per-entry pass of run_entry, which then finds the fresh stores."""
+    groups: dict[tuple, list] = {}
+    for config in configs:
+        inv = config.inverse_config
+        if _has_valid_cache(config) or float(inv.cfg) != 1.0:
+            continue
+        key = (
+            tuple(config.image_size), config.n_frames, inv.n_steps,
+            inv.target_fps, inv.prompt, config.get("seed", 8888),
+            inv.get("encoder_reuse_interval", 1),
+            inv.get("deep_reuse", False),
+        )
+        groups.setdefault(key, []).append(config)
+
+    for key, group in groups.items():
+        if len(group) < 2:
+            continue  # nothing to batch: the per-entry pass inverts it
+        image_size, n_frames, n_steps, fps, prompt, seed, reuse, deep = key
+        videos, firsts, out_dirs = [], [], []
+        for config in group:
+            frames, first = _load_entry_frames(config)
+            videos.append(frames)
+            firsts.append(first)
+            out_dirs.append(config.inverse_config.output_dir)
+        logger.info("batched inversion of %d videos: %s", len(group),
+                    [c.video_name for c in group])
+        pipe.invert_batch(
+            videos, first_frames=firsts, prompt=prompt,
+            height=image_size[1], width=image_size[0], target_fps=fps,
+            num_frames=n_frames, num_inference_steps=n_steps, seed=seed,
+            output_dirs=out_dirs, encoder_reuse_interval=reuse,
+            deep_reuse=deep,
+        )
+        for config in group:
+            # the per-entry pass must now pick up the fresh stores
+            config.force_recompute_latents = False
 
 
 def run_entry(pipe, config) -> None:
@@ -169,9 +214,12 @@ def configure(template, entries) -> list:
     return configs
 
 
-def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None) -> StepTimer:
+def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None,
+        batch: bool = False) -> StepTimer:
     """Invert (and reconstruct) every configured entry on `pipe`, one stage
-    of `timer` per entry.  Returns the timer."""
+    of `timer` per entry; with `batch`, the entries that share an inversion
+    signature first go through one batched step loop (stage
+    "invert/batched").  Returns the timer."""
     for config in configs:
         # `encoder_reuse_interval: auto` probes each uncached entry's video
         # in the JAX package (utils/autoreuse.py)
@@ -182,6 +230,9 @@ def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None) -> Step
                 "yet (ROADMAP.md §1 item 4: reuse modes)")
     timer = timer or StepTimer()
     with trace(profile_dir):
+        if batch and len(configs) > 1:
+            with timer.stage("invert/batched"):
+                run_batched(pipe, configs)
         for config in configs:
             logger.info("processing %s", config.video_name)
             with timer.stage(f"invert/{config.video_name}"):
@@ -195,12 +246,12 @@ def main(argv=None) -> None:
     args = common.parse_args("configs/group_inversion/template.yaml", argv)
     template, entries = common.load_configs(args)
     common.setup_logging(template)
-    common.check_unported_options(args, template, "batch_inversions")
     pipe = common.build_pipeline(args, template)
     pipe = common.apply_unet_options(pipe, template)
     pipe = common.apply_mesh(pipe, args, template)
     pipe = common.apply_quantize(pipe, template)
-    run(pipe, configure(template, entries), args.profile_dir)
+    run(pipe, configure(template, entries), args.profile_dir,
+        batch=args.batch or template.get("batch_inversions", False))
 
 
 if __name__ == "__main__":

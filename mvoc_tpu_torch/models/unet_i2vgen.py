@@ -12,6 +12,11 @@ branches as one batch) the forward returns `(eps, features)`, `features`
 being a plain dict site_id -> tensor or (q, k) of the pre-composited S or
 one branch's term of it (the flax package sows the same values into a
 mutable collection).
+
+Profiling: each top-level child of the forward runs inside a
+`torch.profiler.record_function("I2VGenXLUNet/<child>")` scope (`conv_in`,
+`down_blocks.0`, `mid_block`, `up_blocks.3`, ...), which
+`utils.profiling.device_op_breakdown` books device time under.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from mvoc_tpu_torch import pnp as pnp_lib
 from mvoc_tpu_torch.models.layers import (
@@ -343,6 +349,11 @@ class ImageLatentsTemporalEncoder(nn.Module):
         return self.ff(x) + x
 
 
+def _scope(child: str):
+    """The profiler scope of one top-level child of the UNet forward."""
+    return record_function(f"I2VGenXLUNet/{child}")
+
+
 class I2VGenXLUNet(nn.Module):
     """forward(sample [B, F, H, W, C_in], timestep, fps, image_latents_first
     [B, F, H, W, C_in], image_latents [B, F, H, W, C_in], image_embeddings
@@ -410,14 +421,16 @@ class I2VGenXLUNet(nn.Module):
         c_in, d_ctx = self.config.in_channels, self.config.cross_attention_dim
         image_embeddings = image_embeddings[:, 0:1].expand(b, f, image_embeddings.shape[-1])
         ce = self.image_latents_context_embedding
-        il = image_latents[:, :1].reshape(b, h, w, c_in)
-        il = F.silu(ce[0](il))
-        il = F.adaptive_avg_pool2d(il.permute(0, 3, 1, 2).float(), (32, 32))
-        il = il.permute(0, 2, 3, 1).to(self.dtype)
-        il = ce[5](F.silu(ce[3](il)))
+        with _scope("image_latents_context_embedding"):
+            il = image_latents[:, :1].reshape(b, h, w, c_in)
+            il = F.silu(ce[0](il))
+            il = F.adaptive_avg_pool2d(il.permute(0, 3, 1, 2).float(), (32, 32))
+            il = il.permute(0, 2, 3, 1).to(self.dtype)
+            il = ce[5](F.silu(ce[3](il)))
         n_tok = il.shape[1] * il.shape[2]
         il_tokens = il.reshape(b, 1, n_tok, d_ctx).expand(b, f, n_tok, d_ctx)
-        ie = self.context_embedding[2](F.silu(self.context_embedding[0](image_embeddings)))
+        with _scope("context_embedding"):
+            ie = self.context_embedding[2](F.silu(self.context_embedding[0](image_embeddings)))
         ie_tokens = ie.reshape(b, f, c_in, d_ctx)
         text = encoder_hidden_states[:, None].expand((b, f) + encoder_hidden_states.shape[1:])
         ctx = torch.cat([text, il_tokens, ie_tokens], dim=2)
@@ -438,27 +451,35 @@ class I2VGenXLUNet(nn.Module):
 
         timestep = torch.as_tensor(timestep, device=dev).reshape(-1).expand(b)
         fps = torch.as_tensor(fps, device=dev).reshape(-1).expand(b)
-        emb = self.time_embedding(timestep_embedding(timestep, ch0).to(dt))
-        emb = emb + self.fps_embedding(timestep_embedding(fps, ch0).to(dt))
+        with _scope("time_embedding"):
+            emb = self.time_embedding(timestep_embedding(timestep, ch0).to(dt))
+        with _scope("fps_embedding"):
+            emb = emb + self.fps_embedding(timestep_embedding(fps, ch0).to(dt))
         emb = emb.repeat_interleave(f, dim=0)  # [B*F, temb]
 
         context = self._context(b, f, h, w, image_latents, image_embeddings,
                                 encoder_hidden_states)
 
         pi = self.image_latents_proj_in
-        ilf = image_latents_first.reshape(b * f, h, w, c_in)
-        ilf = pi[4](F.silu(pi[2](F.silu(pi[0](ilf)))))
-        ilf = ilf.reshape(b, f, h, w, c_in).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c_in)
-        ilf = self.image_latents_temporal_encoder(ilf)
-        ilf = ilf.reshape(b, h, w, f, c_in).permute(0, 3, 1, 2, 4).reshape(b * f, h, w, c_in)
+        with _scope("image_latents_proj_in"):
+            ilf = image_latents_first.reshape(b * f, h, w, c_in)
+            ilf = pi[4](F.silu(pi[2](F.silu(pi[0](ilf)))))
+        with _scope("image_latents_temporal_encoder"):
+            ilf = ilf.reshape(b, f, h, w, c_in).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c_in)
+            ilf = self.image_latents_temporal_encoder(ilf)
+            ilf = ilf.reshape(b, h, w, f, c_in).permute(0, 3, 1, 2, 4).reshape(b * f, h, w, c_in)
 
-        x = torch.cat([sample.reshape(b * f, h, w, c_in), ilf], dim=-1)
-        x = self.transformer_in(self.conv_in(x), f)
+        with _scope("conv_in"):
+            x = self.conv_in(torch.cat([sample.reshape(b * f, h, w, c_in), ilf], dim=-1))
+        with _scope("transformer_in"):
+            x = self.transformer_in(x, f)
         res_stack = [x]
-        for blk in self.down_blocks:
-            x, res = blk(x, emb, context, f)
+        for i, blk in enumerate(self.down_blocks):
+            with _scope(f"down_blocks.{i}"):
+                x, res = blk(x, emb, context, f)
             res_stack.extend(res)
-        x = self.mid_block(x, emb, context, f)
+        with _scope("mid_block"):
+            x = self.mid_block(x, emb, context, f)
 
         capture: Optional[dict] = {} if pnp_capture else None
         n_up = cfg.layers_per_block + 1
@@ -467,15 +488,19 @@ class I2VGenXLUNet(nn.Module):
             res_stack = res_stack[:-n_up]
             final = i == len(self.up_blocks) - 1
             upsample_size = tuple(res_stack[-1].shape[1:3]) if (not final and res_stack) else None
-            x = blk(x, res, emb, context, f, upsample_size, pnp, capture)
+            with _scope(f"up_blocks.{i}"):
+                x = blk(x, res, emb, context, f, upsample_size, pnp, capture)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        if cfg.sites.out_conv:
-            hh, ww = x.shape[1], x.shape[2]
-            if capture is not None:
-                _conv_edit(pnp, hh, ww, "out_conv", capture)(x)
-            elif pnp is not None:
-                x = _conv_edit(pnp, hh, ww, "out_conv", None)(x)
+        with _scope("conv_norm_out"):
+            x = F.silu(self.conv_norm_out(x))
+        with _scope("conv_out"):  # with the out_conv injection site
+            x = self.conv_out(x)
+            if cfg.sites.out_conv:
+                hh, ww = x.shape[1], x.shape[2]
+                if capture is not None:
+                    _conv_edit(pnp, hh, ww, "out_conv", capture)(x)
+                elif pnp is not None:
+                    x = _conv_edit(pnp, hh, ww, "out_conv", None)(x)
         out = x.reshape(b, f, h, w, cfg.out_channels)
         if capture is not None:
             return out, capture

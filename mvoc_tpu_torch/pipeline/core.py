@@ -5,6 +5,11 @@ The JAX package compiles each loop into one `lax.scan`; here each is a
 Python step loop over an eager UNet, under `torch.inference_mode()`.
 Schedules (timesteps, gates, the fusion mask) are host arrays, so each
 step's branching is plain Python.
+
+The batch cores run J independent videos (inversion) or group entries
+(composite) in one step loop, the entries riding the UNet's batch axis
+entry-major: one UNet call per step covers all J entries (the JAX package
+vmaps its single-entry scans instead).
 """
 
 from __future__ import annotations
@@ -35,6 +40,18 @@ class UNetConditioning:
     def slice(self, lo: int, hi: int) -> "UNetConditioning":
         return UNetConditioning(*(getattr(self, f.name)[lo:hi] for f in dataclasses.fields(self)))
 
+    def branches(self, lo: int, hi: int, per_entry: int) -> "UNetConditioning":
+        """Branches lo..hi-1 of every entry of an entry-major batch of
+        `per_entry` branches an entry, entry-major again."""
+        return UNetConditioning(*(
+            getattr(self, f.name).unflatten(0, (-1, per_entry))[:, lo:hi].flatten(0, 1)
+            for f in dataclasses.fields(self)))
+
+    def flatten_entries(self) -> "UNetConditioning":
+        """[J, B, ...] fields -> the entry-major batch [J*B, ...]."""
+        return UNetConditioning(*(getattr(self, f.name).flatten(0, 1)
+                                  for f in dataclasses.fields(self)))
+
     def unet_kwargs(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
 
@@ -63,6 +80,24 @@ def ddim_inversion_core(unet, ddim: DDIM, x0_latents: torch.Tensor, cond: UNetCo
         inp = latents[None].expand((n_branches,) + tuple(latents.shape))
         eps = unet(inp, int(t), **cond.unet_kwargs())
         eps = eps[0] + guidance_scale * (eps[1] - eps[0]) if do_cfg else eps[0]
+        latents = ddim.inverse_step(eps, int(t), latents, num_inference_steps)
+        traj.append(latents)
+    return torch.stack(traj)
+
+
+@torch.inference_mode()
+def ddim_inversion_batch_core(unet, ddim: DDIM, x0_latents: torch.Tensor,
+                              cond: UNetConditioning, timesteps,
+                              num_inference_steps: int) -> torch.Tensor:
+    """DDIM inversion of J independent videos in one step loop: x0_latents
+    [J, F, h, w, C] ride the UNet batch axis with one conditioning row per
+    video (cond's leading axis J), at cfg 1 (the inversion template's), so
+    each video is one branch.  Returns [S, J, F, h, w, C].  The JAX
+    package's encoder-reuse keywords are not ported (ROADMAP.md §1 item 4)."""
+    latents = x0_latents
+    traj = []
+    for t in np.asarray(timesteps):
+        eps = unet(latents, int(t), **cond.unet_kwargs())
         latents = ddim.inverse_step(eps, int(t), latents, num_inference_steps)
         traj.append(latents)
     return torch.stack(traj)
@@ -99,7 +134,8 @@ class CompositeSchedule:
     latents pasted during fusion — the reference indexes its fusion list
     with a counter that is set to 0 and never incremented, so the SAME
     latent is pasted at every fusion step (reproduced).  gate_* and
-    fusion_mask: [S'] booleans; timesteps: [S'] descending."""
+    fusion_mask: [S'] booleans; timesteps: [S'] descending.
+    pnp_composite_batch_core takes every field with a leading entry axis J."""
 
     bg_traj: torch.Tensor
     obj_traj: torch.Tensor
@@ -145,24 +181,88 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
     pnp.build_capture_weights) are summed in place into S, then the pair
     consumes it: peak activation memory of one branch.  All three are the
     same function.  step_callback(i), when given, runs after each step
-    (timing hooks)."""
+    (timing hooks).  The loop is pnp_composite_batch_core's at one entry."""
+    def one(pyr):
+        return {res: m[None] for res, m in pyr.items()}
+
+    entry = dataclasses.replace(sched, bg_traj=sched.bg_traj[None], obj_traj=sched.obj_traj[None],
+                                obj_fusion_lat=sched.obj_fusion_lat[None])
+    weights = None if capture_weights is None else {
+        kind: one(pyr) for kind, pyr in capture_weights.items()}
+    return _composite_loop(
+        unet, ddim, init_latents[None], cond, entry, masks_soft[None], one(masks_binary_pyramid),
+        one(masks_soft_pyramid), num_inference_steps, guidance_scale, random_noise_ratio,
+        obj_random_noise_fusion, inject_background, two_pass, weights, step_callback)[0]
+
+
+SHARED_SCHEDULE = ("timesteps", "gate_spatial", "gate_temporal", "gate_conv", "fusion_mask")
+
+
+@torch.inference_mode()
+def pnp_composite_batch_core(unet, ddim: DDIM, init_latents: torch.Tensor,
+                             cond: UNetConditioning, sched: CompositeSchedule,
+                             masks_soft: torch.Tensor,
+                             masks_binary_pyramid: Dict[Tuple[int, int], torch.Tensor],
+                             masks_soft_pyramid: Dict[Tuple[int, int], torch.Tensor],
+                             capture_weights=None, **kwargs) -> torch.Tensor:
+    """J independent composites in one step loop (the counterpart of the
+    JAX package's vmap of pnp_composite_core): every argument carries a
+    leading entry axis J, as there — init_latents [J, F, h, w, C], cond's
+    fields [J, N+3, ...], every field of sched, masks_soft [J, N, F, h, w],
+    the pyramids [J, N, F, h', w'] and the capture weights [J, N+1, ...].
+    The UNet runs once per step over all J entries (fused: J*(N+3)
+    branches; two_pass=True: a capture of J*(N+1), a consume of J*2;
+    stream: N+1 captures of J, a consume of J*2), each site compositing
+    every entry with its own masks, and noise fusion pastes each entry's
+    own fusion latents under its own masks.  The schedule (timesteps,
+    gates, fusion mask) must be the same for every entry: a ValueError
+    otherwise (the CLI groups entries by exactly these).  kwargs: the
+    static knobs of pnp_composite_core.  Returns [J, F, h, w, C]."""
+    j = init_latents.shape[0]
+    shared = {}
+    for name in SHARED_SCHEDULE:
+        v = np.asarray(getattr(sched, name))
+        if v.shape[0] != j or not (v == v[:1]).all():
+            raise ValueError(f"sched.{name} differs across the {j} entries: a batch of "
+                             "composites shares its timesteps, gates and fusion mask")
+        shared[name] = v[0]
+    return _composite_loop(unet, ddim, init_latents, cond.flatten_entries(),
+                           dataclasses.replace(sched, **shared), masks_soft,
+                           masks_binary_pyramid, masks_soft_pyramid,
+                           capture_weights=capture_weights, **kwargs)
+
+
+def _composite_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetConditioning,
+                    sched: CompositeSchedule, masks_soft: torch.Tensor, pyr_bin, pyr_soft,
+                    num_inference_steps: int, guidance_scale: float,
+                    random_noise_ratio: float = 0.0, obj_random_noise_fusion: bool = False,
+                    inject_background: bool = True, two_pass=False, capture_weights=None,
+                    step_callback=None) -> torch.Tensor:
+    """The composite step loop over J entries: latents [J, F, h, w, C]; cond
+    the entry-major batch of J*(N+3) branches; sched's trajectories with a
+    leading J and its timesteps, gates and fusion mask shared ([S']);
+    masks_soft [J, N, F, h, w]; pyramids and capture weights with a leading
+    J."""
     if two_pass not in (False, True, "stream"):
         raise ValueError(f"two_pass={two_pass!r}: False (fused), True or 'stream'")
     stream = two_pass == "stream"
     if stream and capture_weights is None:
         raise ValueError("stream capture needs capture_weights")
-    n_obj = masks_soft.shape[0]
+    n_entries, n_obj = masks_soft.shape[:2]
+    nb = n_obj + 3
     mask_b = masks_soft[..., None]
-    latents = init_latents
+    if two_pass:
+        src_cond = cond.branches(0, n_obj + 1, nb)
+        edit_cond = cond.branches(n_obj + 1, nb, nb)
+        branch_cond = [cond.branches(b, b + 1, nb) for b in range(n_obj + 1)] if stream else None
     for i, t in enumerate(np.asarray(sched.timesteps)):
         t = int(t)
-        bg_lat, obj_lat = sched.bg_traj[i], sched.obj_traj[i]
-        fuse = bool(sched.fusion_mask[i])
-        if fuse:  # noise fusion
+        bg_lat, obj_lat = sched.bg_traj[:, i], sched.obj_traj[:, i]
+        if bool(sched.fusion_mask[i]):  # noise fusion, each entry with its own masks
             latents = random_noise_ratio * latents + (1.0 - random_noise_ratio) * bg_lat
             for j in range(n_obj):
-                m = mask_b[j]
-                paste = sched.obj_fusion_lat[j] * m
+                m = mask_b[:, j]
+                paste = sched.obj_fusion_lat[:, j] * m
                 if obj_random_noise_fusion:
                     fg = latents * m * random_noise_ratio + (1.0 - random_noise_ratio) * paste
                 else:
@@ -171,32 +271,33 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
             # during fusion steps the object branches also take the fusion latents
             obj_lat = sched.obj_fusion_lat
         state = pnp_lib.PnPState(
-            masks=masks_binary_pyramid, masks_soft=masks_soft_pyramid,
+            masks=pyr_bin, masks_soft=pyr_soft,
             gate_spatial=bool(sched.gate_spatial[i]), gate_temporal=bool(sched.gate_temporal[i]),
             gate_conv=bool(sched.gate_conv[i]), inject_background=inject_background)
 
         if two_pass:
-            src_inp = torch.cat([bg_lat[None], obj_lat], dim=0)
+            src = torch.cat([bg_lat[:, None], obj_lat], dim=1)  # [J, N+1, F, h, w, C]
             if stream:
                 feats = None
                 for b in range(n_obj + 1):
-                    wgt = {kind: {res: w[b] for res, w in pyr.items()}
+                    wgt = {kind: {res: w[:, b] for res, w in pyr.items()}
                            for kind, pyr in capture_weights.items()}
-                    _, f_b = unet(src_inp[b:b + 1], t, **cond.slice(b, b + 1).unet_kwargs(),
+                    _, f_b = unet(src[:, b], t, **branch_cond[b].unet_kwargs(),
                                   pnp=dataclasses.replace(state, capture_weight=wgt),
                                   pnp_capture=True)
                     feats = _accumulate(feats, f_b)
             else:
-                _, feats = unet(src_inp, t, **cond.slice(0, n_obj + 1).unet_kwargs(), pnp=state,
+                _, feats = unet(src.flatten(0, 1), t, **src_cond.unet_kwargs(), pnp=state,
                                 pnp_capture=True)
             consume = dataclasses.replace(state, mode="consume_pre", features=feats)
-            eps = unet(torch.stack([latents, latents]), t,
-                       **cond.slice(n_obj + 1, n_obj + 3).unet_kwargs(), pnp=consume)
-            eps_neg, eps_pos = eps[0], eps[1]
+            eps = unet(torch.stack([latents, latents], dim=1).flatten(0, 1), t,
+                       **edit_cond.unet_kwargs(), pnp=consume).unflatten(0, (n_entries, 2))
+            eps_neg, eps_pos = eps[:, 0], eps[:, 1]
         else:
-            inp = torch.cat([bg_lat[None], obj_lat, latents[None], latents[None]], dim=0)
-            eps = unet(inp, t, **cond.unet_kwargs(), pnp=state)
-            eps_neg, eps_pos = eps[n_obj + 1], eps[n_obj + 2]
+            inp = torch.cat([bg_lat[:, None], obj_lat, latents[:, None], latents[:, None]],
+                            dim=1).flatten(0, 1)
+            eps = unet(inp, t, **cond.unet_kwargs(), pnp=state).unflatten(0, (n_entries, nb))
+            eps_neg, eps_pos = eps[:, n_obj + 1], eps[:, n_obj + 2]
         eps_g = eps_neg + guidance_scale * (eps_pos - eps_neg)
         latents = ddim.step(eps_g, t, latents, num_inference_steps)
         if step_callback is not None:

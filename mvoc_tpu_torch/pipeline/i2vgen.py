@@ -1,8 +1,8 @@
 """I2VGen-XL pipeline in PyTorch: host orchestration over the step loops
 (counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices ported so
-far: from_pretrained, invert, sample (the reconstruction path),
-generate_background, sample_composite, the int8 mode (enable_int8) and the
-tiled VAE decode (enable_vae_tiling)).
+far: from_pretrained, invert and invert_batch, sample (the reconstruction
+path), generate_background, sample_composite and sample_composite_batch,
+the int8 mode (enable_int8) and the tiled VAE decode (enable_vae_tiling)).
 
 The JAX package's extension keywords are accepted at their exact defaults
 (what its composite CLI always passes); any other value of a mode that is
@@ -16,6 +16,7 @@ passed; it raises when CUDA is asked for and absent.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Optional, Sequence
 
@@ -54,9 +55,21 @@ def refuse_unported(**values) -> None:
                                       f"{item}); mvoc_tpu_torch runs only {name}={default!r}")
 
 
+def _composite_core_kwargs(kwargs: dict, random_noise_ratio: float,
+                           obj_random_noise_fusion: bool, step_callback) -> dict:
+    """The composite loop's static knobs, from the entry point's keywords."""
+    return dict(num_inference_steps=kwargs.get("num_inference_steps", 50),
+                guidance_scale=float(kwargs.get("guidance_scale", 9.0)),
+                random_noise_ratio=float(random_noise_ratio),
+                obj_random_noise_fusion=obj_random_noise_fusion,
+                inject_background=kwargs.get("inject_background", True),
+                two_pass=kwargs.get("two_pass", False), step_callback=step_callback)
+
+
 class I2VGenXLPipeline:
-    """The model modules plus the reference's pipeline entry points (batch
-    size 1, like the reference's usage)."""
+    """The model modules plus the reference's pipeline entry points: one
+    video or composite a call, like the reference's usage, or J of them in
+    one step loop (invert_batch, sample_composite_batch)."""
 
     def __init__(self, unet: I2VGenXLUNet, vae: AutoencoderKL, text_encoder: CLIPTextModel,
                  image_encoder: CLIPVisionModelWithProjection, scheduler_config: SchedulerConfig,
@@ -294,6 +307,54 @@ class I2VGenXLPipeline:
             logger.info("saved trajectory (%d steps) to %s", len(ts), output_dir)
         return ts, trajectory
 
+    def invert_batch(self, videos: Sequence[Sequence[Image.Image]],
+                     first_frames: Optional[Sequence[Optional[Image.Image]]] = None,
+                     prompt: str = "", height: int = 720, width: int = 1280, target_fps: int = 8,
+                     num_frames: int = 16, num_inference_steps: int = 500, clip_skip: int = 1,
+                     seed: int = 8888, output_dirs: Optional[Sequence[Optional[str]]] = None,
+                     encoder_reuse_interval: int = 1,
+                     deep_reuse: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """DDIM-invert J independent videos in one step loop, the videos on
+        the UNet batch axis (ddim_inversion_batch_core), at cfg 1 (the
+        inversion template's), so each video is one branch.  Returns
+        (timesteps ascending, trajectory [S, J, F, h, w, C]) and writes one
+        trajectory store per video where output_dirs names a directory.
+
+        Draws: video j's VAE encode noise, then its first frame's, come from
+        its own generator seeded from `seed`, so every video gets the draws
+        invert(videos[j], seed=seed) takes and a batch inverts what the
+        sequential calls invert.  (The JAX package splits one key into 2J
+        keys, which torch cannot reproduce.)  The encoder-reuse keywords run
+        only at their exact defaults."""
+        refuse_unported(encoder_reuse_interval=encoder_reuse_interval, deep_reuse=deep_reuse)
+        self.check_inputs(height, width, num_frames)
+        first_frames = list(first_frames or [None] * len(videos))
+        x0s, img_embs, img_lats = [], [], []
+        for frames, first in zip(videos, first_frames):
+            gen = self._generator(seed)
+            first = first or frames[0]
+            x0s.append(self.encode_vae_video(frames, height, width, generator=gen))
+            img_embs.append(self.encode_image(first, width).expand(num_frames, -1))
+            img_lats.append(self.encode_first_frame_latents(first, height, width, num_frames,
+                                                            generator=gen))
+        pe, _ = self.encode_prompt(prompt, do_cfg=False, clip_skip=clip_skip)
+        img_lat = torch.stack(img_lats)
+        cond = self._stack_cond(pe.expand((len(videos),) + tuple(pe.shape[1:])), img_lat,
+                                img_lat, torch.stack(img_embs), target_fps)
+        ts = inversion_timesteps(self.scheduler_config, num_inference_steps)
+        traj = core.ddim_inversion_batch_core(self.unet, self.ddim, torch.stack(x0s).float(),
+                                              cond, ts, num_inference_steps)
+        trajectory = traj.float().cpu().numpy()
+        for j, out_dir in enumerate(output_dirs or []):
+            if out_dir is None:
+                continue
+            meta = dict(n_steps=num_inference_steps, guidance_scale=1.0, num_frames=num_frames,
+                        height=height, width=width, prompt=prompt, seed=seed,
+                        target_fps=target_fps, encoder_reuse_interval=encoder_reuse_interval)
+            TrajectoryStore(out_dir).save(ts, trajectory[:, j], meta=meta)
+            logger.info("saved trajectory (%d steps) to %s", len(ts), out_dir)
+        return ts, trajectory
+
     # -- entry point D: plain sampling / reconstruction -------------------------
 
     def sample(self, image: Image.Image, prompt: str = "", negative_prompt: str = "",
@@ -471,13 +532,59 @@ class I2VGenXLPipeline:
          capture_weights) = self._prepare_composite(*args, **kwargs)
         final = core.pnp_composite_core(
             self.unet, self.ddim, init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
-            num_inference_steps=kwargs.get("num_inference_steps", 50),
-            guidance_scale=float(kwargs.get("guidance_scale", 9.0)),
-            random_noise_ratio=float(random_noise_ratio),
-            obj_random_noise_fusion=obj_random_noise_fusion,
-            inject_background=kwargs.get("inject_background", True),
-            two_pass=kwargs.get("two_pass", False), capture_weights=capture_weights,
-            step_callback=step_callback)
+            capture_weights=capture_weights, **_composite_core_kwargs(
+                kwargs, random_noise_ratio, obj_random_noise_fusion, step_callback))
         if not decode:
             return final
         return self.decode_latents(final, decode_chunk_size=decode_chunk_size)
+
+    def _prepare_composite_batch(self, entries: Sequence[dict], **shared_kwargs):
+        """_prepare_composite of every entry (its own kwargs and the shared
+        ones), stacked on a leading entry axis J: (init_latents [J, ...],
+        cond [J, N+3, ...], sched, masks_soft, pyr_bin, pyr_soft,
+        capture_weights), as pnp_composite_batch_core takes them."""
+        if not entries:
+            raise ValueError("sample_composite_batch needs at least one entry")
+        prepared = [self._prepare_composite(**shared_kwargs, **e) for e in entries]
+
+        def stack(items):
+            first = items[0]
+            if first is None:
+                return None
+            if isinstance(first, dict):
+                return {k: stack([it[k] for it in items]) for k in first}
+            if isinstance(first, np.ndarray):
+                return np.stack(items)
+            if dataclasses.is_dataclass(first):
+                return type(first)(*(stack([getattr(it, f.name) for it in items])
+                                     for f in dataclasses.fields(first)))
+            return torch.stack(items)
+
+        return tuple(stack([p[i] for p in prepared]) for i in range(len(prepared[0])))
+
+    def sample_composite_batch(self, entries: Sequence[dict], decode: bool = True,
+                               decode_chunk_size: Optional[int] = 1,
+                               random_noise_ratio: float = 0.0,
+                               obj_random_noise_fusion: bool = False, step_callback=None,
+                               **shared_kwargs):
+        """J independent composites in one step loop, the entries on the
+        UNet batch axis (pnp_composite_batch_core; the reference loops group
+        entries one by one, composite.py:87).
+
+        entries: per-entry kwargs of _prepare_composite (prompt, images,
+        masks, stores, seed, ...); shared_kwargs: the knobs every entry
+        shares (steps, guidance, two_pass, ...; the CLI groups entries by
+        them), and every entry is prepared with them, target_fps included,
+        as in the JAX package.  Each entry draws from its own generator
+        seeded from its seed, as sample_composite does.  Returns one decoded
+        video [F, H, W, 3] per entry, or the final latents [J, F, h, w, C]
+        if not decode."""
+        (init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
+         capture_weights) = self._prepare_composite_batch(entries, **shared_kwargs)
+        final = core.pnp_composite_batch_core(
+            self.unet, self.ddim, init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
+            capture_weights=capture_weights, **_composite_core_kwargs(
+                shared_kwargs, random_noise_ratio, obj_random_noise_fusion, step_callback))
+        if not decode:
+            return final
+        return [self.decode_latents(f, decode_chunk_size=decode_chunk_size) for f in final]

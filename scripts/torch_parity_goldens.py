@@ -12,11 +12,15 @@ limit, so this script runs the JAX package once and stores, as numpy:
   * for each temporal layout: the inputs and output of a plain forward, and
     of the stream path (per-branch capture summed over the source branches,
     then the batch-2 consume), with the summed site features;
-  * a 3-step DDIM inversion (inputs and trajectory);
+  * a 3-step DDIM inversion (inputs and trajectory), and the same batched
+    over J = 2 videos (ddim_inversion_batch_core: today's inputs as video
+    0, seeded ones as video 1);
   * a 3-step PnP composite (fused, and two_pass=True: the batched capture
     over the source branches, then the consume): the inputs JAX's own
     _prepare_composite built from seeded frames, masks and trajectory
-    stores, and both results;
+    stores, and both results; and the batched composite over J = 2
+    entries (pnp_composite_batch_core: that entry, and a second one with
+    another prompt, seed and masks) fused, two_pass=True and stream;
   * 3 steps of plain DDIM sampling (ddim_sampling_core: cfg 3.0, no cfg,
     and eta 0.5 with the noise passed in);
   * at a 5 x 9 latent (halvings 3 x 5, 2 x 3, 1 x 2, the 720p geometry in
@@ -263,6 +267,17 @@ def main() -> int:
             jnp.asarray(ts), 50))
         jax.effects_barrier()
     tape.store(out, "invert")
+    # the same inversion batched over two videos: video 0 as above, video 1 seeded
+    inv1 = dict(x0=mk(F, LAT, LAT, 4), encoder_hidden_states=mk(1, 7, D),
+                image_latents_first=mk(1, F, LAT, LAT, 4), image_latents=mk(1, F, LAT, LAT, 4),
+                image_embeddings=mk(1, F, D), fps=np.array([8]))
+    inv2 = {k: np.concatenate([inv[k][None] if k == "x0" else inv[k],
+                               inv1[k][None] if k == "x0" else inv1[k]]) for k in inv}
+    cond2 = core.UNetConditioning(**{k: jnp.asarray(v) for k, v in inv2.items() if k != "x0"})
+    for k, v in inv2.items():
+        out[f"invert_batch/{k}"] = v
+    out["invert_batch/trajectory"] = np.asarray(core.ddim_inversion_batch_core(
+        pipe._unet_apply, pipe.ddim, params, jnp.asarray(inv2["x0"]), cond2, jnp.asarray(ts), 50))
     print("inversion: done", flush=True)
 
     with tempfile.TemporaryDirectory() as root:
@@ -279,11 +294,24 @@ def main() -> int:
         c_binary[0, :, : LAT // 2] = 1.0
         c_binary[1, :, :, : LAT // 2] = 1.0
         c_soft = np.clip(c_binary * 0.7 + 0.2, 0, 1).astype(np.float32)
-        init, ccond, sched, ms, cpb, cps, _ = pipe._prepare_composite(
+        init, ccond, sched, ms, cpb, cps, ccw = pipe._prepare_composite(
             "a cat", frames[0][0], frames[0], frames[1], frames[2:], c_soft, c_binary,
             stores[0], stores[1:], height=HW, width=HW, num_frames=F,
             num_inference_steps=N_STEPS, guidance_scale=3.0, fusion_steps=(0, 1),
             two_pass="stream", seed=3)
+        # a second entry for the batched composite: same sources, another
+        # prompt and seed, the objects' masks moved
+        b_binary = np.zeros((N_OBJ, F, LAT, LAT), np.float32)
+        b_binary[0, :, LAT // 2:, LAT // 4:] = 1.0
+        b_binary[1, :, : 3 * LAT // 4, LAT // 2:] = 1.0
+        b_soft = np.clip(b_binary * 0.6 + 0.3, 0, 1).astype(np.float32)
+        second = pipe._prepare_composite(
+            "a dog on a boat", frames[0][0], frames[0], frames[1], frames[2:], b_soft, b_binary,
+            stores[0], stores[1:], height=HW, width=HW, num_frames=F,
+            num_inference_steps=N_STEPS, guidance_scale=3.0, fusion_steps=(0, 1),
+            two_pass="stream", seed=5)
+        batch = jax.tree.map(lambda *xs: jnp.stack(xs),
+                             (init, ccond, sched, ms, cpb, cps, ccw), second)
     fused = core.pnp_composite_core(
         pipe._unet_apply, pipe.ddim, params, init, ccond, sched, ms, cpb, cps,
         num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
@@ -310,6 +338,24 @@ def main() -> int:
             two_pass=False))
         jax.effects_barrier()
     tape.store(out, "composite")
+    b_init, b_cond, b_sched, b_ms, b_pb, b_ps, b_cw = batch
+    out["composite_batch/init"] = np.asarray(b_init)
+    for f in dataclasses.fields(core.UNetConditioning):
+        out[f"composite_batch/cond/{f.name}"] = np.asarray(getattr(b_cond, f.name))
+    for f in dataclasses.fields(core.CompositeSchedule):
+        out[f"composite_batch/sched/{f.name}"] = np.asarray(getattr(b_sched, f.name))
+    out["composite_batch/masks_soft"] = np.asarray(b_ms)
+    for (h, w), v in b_pb.items():
+        out[f"composite_batch/pyr_bin/{h}x{w}"] = np.asarray(v)
+    for (h, w), v in b_ps.items():
+        out[f"composite_batch/pyr_soft/{h}x{w}"] = np.asarray(v)
+    for name, two_pass in (("fused", False), ("two_pass", True), ("stream", "stream")):
+        out[f"composite_batch/{name}_out"] = np.asarray(core.pnp_composite_batch_core(
+            pipe._unet_apply, pipe.ddim, params, b_init, b_cond, b_sched, b_ms, b_pb, b_ps,
+            capture_weights=b_cw if two_pass == "stream" else None,
+            num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
+            two_pass=two_pass))
+        print(f"batched composite {name}: done", flush=True)
     print("composite: done", flush=True)
 
     # plain DDIM sampling (the reconstruction path): 3 steps with cfg 3.0,

@@ -14,8 +14,10 @@
   the device, as the port's entry points do);
 * what used to be refused and is ported now: two_pass=True, the template's
   enable_vae_tiling (argument parity with the JAX CLI), a checkpoint
-  directory (the pipeline both CLIs build from the tiny checkpoint), and
-  --mesh_seq / --mesh_job without a mesh size (passed through, as in JAX).
+  directory (the pipeline both CLIs build from the tiny checkpoint),
+  --mesh_seq / --mesh_job without a mesh size (passed through, as in JAX),
+  and --batch / batch_inversions / batch_composites (argument parity with
+  the JAX CLIs through invert_batch and sample_composite_batch).
 """
 
 import argparse
@@ -83,6 +85,23 @@ class RecordingPipeline:
         self.calls.append(("sample_composite", None, kw))
         return self._video(kw)
 
+    def invert_batch(self, videos, **kw):
+        self.calls.append(("invert_batch", videos, kw))
+        ts = inversion_timesteps(self.scheduler_config, kw["num_inference_steps"])
+        rng = np.random.default_rng(len(self.calls))
+        h, w = kw["height"] // 2, kw["width"] // 2
+        traj = rng.standard_normal((len(ts), len(videos), kw["num_frames"], h, w, 4)).astype(
+            np.float32)
+        meta = {k: kw[k] for k in ("prompt", "seed", "height", "width")}
+        meta.update(n_steps=kw["num_inference_steps"], num_frames=kw["num_frames"])
+        for j, out_dir in enumerate(kw["output_dirs"]):
+            TrajectoryStore(out_dir, prefer_native=False).save(ts, traj[:, j], meta=meta)
+        return ts, traj
+
+    def sample_composite_batch(self, entries, **kw):
+        self.calls.append(("sample_composite_batch", entries, kw))
+        return [self._video(kw) for _ in entries]
+
 
 def _norm(v):
     """A comparable form of a recorded argument."""
@@ -93,6 +112,8 @@ def _norm(v):
         return ("store", v.path, ts.tolist(), v.gather(ts).tobytes())
     if isinstance(v, (list, tuple)):
         return (type(v).__name__, [_norm(x) for x in v])
+    if isinstance(v, dict):
+        return ("dict", sorted((k, _norm(x)) for k, x in v.items()))
     if isinstance(v, (str, int, float, bool, type(None))):
         return v
     a = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
@@ -130,25 +151,25 @@ def _template_args(kind, configs_json):
             "--configs_json", configs_json]
 
 
-def _run_jax(monkeypatch, demo, kinds=("inversion", "composite")):
+def _run_jax(monkeypatch, demo, kinds=("inversion", "composite"), argv=None):
     root, paths = demo
     pipe = RecordingPipeline()
     monkeypatch.setattr(jcommon, "build_pipeline", lambda args, t: pipe)
     monkeypatch.setattr(jcommon, "apply_unet_options", lambda p, t: p)
     for kind in kinds:
-        monkeypatch.setattr(sys, "argv", ["prog"] + _template_args(kind, paths[kind]))
+        monkeypatch.setattr(sys, "argv", ["prog"] + (argv or _template_args(kind, paths[kind])))
         {"inversion": jinverse, "composite": jcomposite}[kind].main()
     return pipe
 
 
-def _run_port(monkeypatch, demo, kinds=("inversion", "composite")):
+def _run_port(monkeypatch, demo, kinds=("inversion", "composite"), argv=None):
     root, paths = demo
     pipe = RecordingPipeline()
     monkeypatch.setattr(tcommon, "build_pipeline", lambda args, t: pipe)
     monkeypatch.setattr(tcommon, "apply_unet_options", lambda p, t: p)
     for kind in kinds:
         {"inversion": tinverse, "composite": tcomposite}[kind].main(
-            _template_args(kind, paths[kind]))
+            argv or _template_args(kind, paths[kind]))
     return pipe
 
 
@@ -388,16 +409,55 @@ def test_mesh_refused(args, template):
         tcommon.apply_mesh("pipe", _args(**args), tcfg.create(template))
 
 
-@pytest.mark.parametrize("kind,mod,key", [("inversion", tinverse, "batch_inversions"),
-                                          ("composite", tcomposite, "batch_composites")])
-def test_batch_refused(demo, tmp_path, kind, mod, key):
-    argv = _template_args(kind, demo[1][kind])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mod.main(argv + ["--batch"])
-    template = tmp_path / "t.yaml"
-    template.write_text(f"{key}: true\n")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mod.main(["--template_config", str(template), "--configs_json", demo[1][kind]])
+@pytest.mark.parametrize("kind,key", [("inversion", "batch_inversions"),
+                                      ("composite", "batch_composites")])
+def test_batch_refused(tmp_path, monkeypatch, kind, key):
+    """--batch and the template's batch_* key (refused until the batch entry
+    points were ported) now batch as the JAX CLIs do, argument for argument
+    on the recording stub: the inversion CLI inverts the three uncached
+    videos in one invert_batch call, then the per-entry pass finds their
+    stores and runs only bg's reconstruction; the composite CLI groups
+    entries by the JAX key, so two entries that differ in prompt, seed and
+    target_fps share one sample_composite_batch call at the first entry's
+    fps (the JAX quirk the port copies), and an entry with other steps
+    runs alone.  The files written match too."""
+    import json
+
+    root = str(tmp_path / "tree")
+    paths = tt.write_demo_tree(root, HW, HW, F, STEPS)
+    demo = (root, paths)
+    with open(paths["composite"]) as f:
+        (entry,) = json.load(f)
+    entries = [entry,
+               dict(entry, editing_prompt="a blue boat", seed=9, target_fps=12,
+                    edited_video_name="blue boat"),
+               dict(entry, n_steps=STEPS - 1, edited_video_name="fewer steps")]
+    with open(paths["composite"], "w") as f:
+        json.dump(entries, f)
+    template = os.path.join(ROOT, "configs", f"group_{kind}", "template.yaml")
+    keyed = tmp_path / "keyed.yaml"
+    with open(template) as f:
+        keyed.write_text(f.read() + f"\n{key}: true\n")
+    want_calls = {"inversion": ["invert_batch", "sample"],
+                  "composite": ["sample_composite_batch", "sample_composite"]}[kind]
+    for argv in (_template_args(kind, paths[kind]) + ["--batch"],
+                 ["--template_config", str(keyed), "--configs_json", paths[kind]]):
+        recorded = {}
+        for name, run in (("jax", _run_jax), ("port", _run_port)):
+            _clear(root)
+            if kind == "composite":  # the trajectories the composites read
+                run(monkeypatch, demo, kinds=("inversion",))
+            pipe = run(monkeypatch, demo, kinds=(kind,), argv=argv)
+            recorded[name] = (_recorded(pipe.calls), _files(root))
+        assert [c[0] for c in recorded["port"][0]] == want_calls
+        assert recorded["port"] == recorded["jax"]
+    first, batch = recorded["port"][0][0][1], recorded["port"][0][0][2]
+    if kind == "inversion":
+        assert len(first[1]) == 3 and len(batch["output_dirs"][1]) == 3
+    else:
+        assert [e[1][[k for k, _ in e[1]].index("seed")][1] for e in first[1]] == [6, 9]
+        assert batch["target_fps"] == 8  # the first entry's, the second asked for 12
+        assert sum(p.endswith("video.gif") for p in recorded["port"][1]) == 3
 
 
 def test_auto_reuse_refused(demo):
