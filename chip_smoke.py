@@ -2,10 +2,10 @@
 main paths (invert -> stream composite -> decode in bf16, then the same in
 int8, then a full-width diffusers checkpoint written, loaded and verified,
 then both CLIs from that checkpoint at the templates' 1280 x 720 and a tiled
-decode of their composite, then both CLIs again with their entries batched)
-at full I2VGen-XL width on one CUDA card, and
-holds every kernel against its plain PyTorch version at every shape those
-runs launched it with.
+decode of their composite, then both CLIs again with their entries batched,
+and every reuse and broadcast mode at 512 px and through both CLIs) at full
+I2VGen-XL width on one CUDA card, and holds every kernel against its plain
+PyTorch version at every shape those runs launched it with.
 
     python3 chip_smoke.py [--steps 3] [--seed 0]
 
@@ -43,6 +43,27 @@ Phases, in order (each failure ends the run with a non-zero exit):
      the bf16 and of the int8-mixed path runs again under torch.profiler:
      its wall time with and without the profiler, the device's busy time
      and idle share, and device time by kernel group);
+  6b. (on phase 2's bf16 pipeline, before phase 5 quantizes it) every reuse
+     and broadcast mode through the entry points at 512 px: inversions of
+     the background video (6 steps: exact, encoder reuse k = 2, k = 2 deep,
+     k = 3 at depth 2, every knob at 1) and invert_batch of the three
+     videos (exact, k = 2 deep); composites of 6 run steps over exact
+     inversions (exact on all three paths, encoder reuse k = 2 on each,
+     k = 2 at depth 2 and PAB k = 2 on the fused path, capture reuse k = 2
+     on two_pass=True and stream, deep capture reuse k = 3 on stream, one
+     capture broadcast over every step, the knobs at 1, and a J = 2
+     sample_composite_batch at deep capture reuse k = 3 whose second entry
+     has the objects' masks exchanged).  Per run: seconds per fresh and per
+     cached step (synced, through step_callback), K1 and K2 launches per
+     fresh and per cached step, the bytes of the caches, peak memory, the
+     mean step against the exact run of its path and the drift from it.
+     Checks: every output finite; the knobs at 1 bitwise the exact run;
+     every k > 1 mode away from it; a cached step launching fewer K1 + K2
+     than a fresh one; the stale capture drifting further than k = 2; the
+     batched entries within TOL_BATCH of their single runs and the
+     exchanged-masks entry beyond it; FreeU on one fused step away from the
+     plain step and, after disable_freeu, bitwise it; frameinit and
+     warp_affine on the card within 1e-5 of max |x| of the CPU's;
   7a. the checkpoint phase: the seeded bf16 pipeline written as a diffusers
      I2VGen-XL directory (utils.testing.write_checkpoint: fp16 safetensors
      UNet and image tower, fp32 safetensors VAE, a torch .bin text tower,
@@ -87,10 +108,17 @@ Phases, in order (each failure ends the run with a non-zero exit):
      then one steady batched step under torch.profiler, its trace booked
      by utils.profiling.device_op_breakdown to kernel groups and UNet
      modules;
-  8. kernel phases: K1 and K2 at every distinct shape the bf16 slice and
-     the CLI phases and the tiled decode launched, plus a ragged 14400-token
-     K1 case and K1 with the temporal-window band as its bias (F = 96 in
-     both frame layouts, F = 160), each against its plain
+  7c. both CLIs with the reuse modes, on phase 7's pipeline and demo tree:
+     cli.inverse.run on bg (recon on) with `encoder_reuse_interval: auto`
+     (candidates [3, 2], 4 probe steps, deep_reuse), its store recomputed,
+     then cli.composite.run on the one entry with `pab_interval: 2`; the
+     auto report, per stage its wall time, launches and peak memory, the
+     PAB dict's bytes, and the drift from the exact composite on the same
+     stores;
+  8. kernel phases: K1 and K2 at every distinct shape the bf16 slice, the
+     reuse phases, the CLI phases and the tiled decode launched, plus a
+     ragged 14400-token K1 case and K1 with the temporal-window band as its
+     bias (F = 96 in both frame layouts, F = 160), each against its plain
      version computed in fp32 from the same bf16 inputs; K3 at every
      (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
      bitwise against its plain version.  Each with its device time
@@ -195,6 +223,7 @@ SASS_REQUIRED = (("flash_attention", "flash_wgmma_d64", "HGMMA"),
 PROMPT = "a red boat and a surfer on the sea"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_SIZE = (1280, 720)  # both shipped templates' image_size
+CARD = "cuda"  # the device phase 6b holds the CPU's frameinit / warp_affine against
 
 
 def log(*a):
@@ -445,6 +474,323 @@ def profile_step(run, tag: str, trace_dir=None) -> dict:
         f"{out['launches']} kernel launches, idle share {out['idle_share']:.3f}; device ms by "
         f"group: { {g: round(v, 2) for g, v in out['groups_ms'].items()} }")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the reuse and broadcast modes at 512 px (phase 6b)
+# ---------------------------------------------------------------------------
+
+
+def _nbytes(x) -> int:
+    """Bytes of the tensors in a nest of tuples, lists and dicts."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(v) for v in x)
+    return 0
+
+
+class ReuseProbe:
+    """Per step of the step loops run inside it: seconds (synced, from the
+    loop's start), K1 and K2 launches, and the bytes of the caches the UNet
+    calls of that step returned (the encoder cache, the PAB dict, and under
+    capture reuse one capture's features: the summed S the loop keeps).
+    Its `on_step` is the entry points' step_callback."""
+
+    LOOPS = ("ddim_inversion_core", "ddim_inversion_batch_core", "pnp_composite_core",
+             "pnp_composite_batch_core")
+
+    def __init__(self, pipe, capture_reuse: bool = False):
+        self.pipe, self.capture_reuse = pipe, capture_reuse
+        self.step_s, self.k1, self.k2, self.cache_bytes = [], [], [], []
+        self.call_bytes = []  # (the cache keywords a UNet call had, the bytes it returned)
+        self._bytes, self._captured, self._last, self._counts = 0, False, 0.0, None
+
+    def _mark(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self._last, self._counts = time.perf_counter(), read_counts()[0]
+
+    def on_step(self, i):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.step_s.append(now - self._last)
+        counts = read_counts()[0]
+        d = _minus(counts, self._counts)
+        self.k1.append(d["flash_attention"])
+        self.k2.append(d["frame_attention"])
+        self.cache_bytes.append(self._bytes)
+        self._last, self._counts, self._bytes, self._captured = now, counts, 0, False
+
+    def __enter__(self):
+        from mvoc_tpu_torch.pipeline import core
+
+        self._orig = {n: getattr(core, n) for n in self.LOOPS}
+        for name, fn in self._orig.items():
+            def loop(*a, _fn=fn, **kw):
+                self._mark()
+                return _fn(*a, **kw)
+            setattr(core, name, loop)
+        forward = self.pipe.unet.forward
+
+        def recorded(*a, **kw):
+            out = forward(*a, **kw)
+            if isinstance(out, tuple):
+                extra = list(out[1:])
+                self.call_bytes.append((tuple(sorted(n for n in ("return_encoder", "pab_capture")
+                                                     if kw.get(n))), _nbytes(extra)))
+                if kw.get("pnp_capture"):
+                    feats = extra.pop(0)
+                    if self.capture_reuse and not self._captured:
+                        self._bytes += _nbytes(feats)
+                        self._captured = True
+                self._bytes += _nbytes(extra)
+            return out
+
+        self.pipe.unet.forward = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from mvoc_tpu_torch.pipeline import core
+
+        for name, fn in self._orig.items():
+            setattr(core, name, fn)
+        del self.pipe.unet.forward
+
+
+def reuse_stats(probe: ReuseProbe, k: int, peak: float, secs: float) -> dict:
+    """A run's per-step figures split into fresh and cached steps."""
+    from mvoc_tpu_torch.pipeline import core
+
+    fresh = core.fresh_steps(len(probe.step_s), k)
+
+    def mean(vals, want):
+        picked = [v for v, f in zip(vals, fresh) if f == want]
+        return sum(picked) / len(picked) if picked else None
+
+    k12 = [a + b for a, b in zip(probe.k1, probe.k2)]
+    return dict(step_s=probe.step_s, fresh=fresh, s=secs,
+                fresh_step_s=mean(probe.step_s, True), cached_step_s=mean(probe.step_s, False),
+                k1k2_fresh=mean(k12, True), k1k2_cached=mean(k12, False),
+                k1_fresh=mean(probe.k1, True), k1_cached=mean(probe.k1, False),
+                k2_fresh=mean(probe.k2, True), k2_cached=mean(probe.k2, False),
+                mean_step_s=sum(probe.step_s) / max(len(probe.step_s), 1),
+                cache_bytes=max(probe.cache_bytes or [0]), peak_gib=peak)
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def reuse_phase(pipe, videos, masks, seed: int, steps: int = 6) -> dict:
+    """Phase 6b: every reuse and broadcast mode through the entry points at
+    512 px on the bf16 pipeline of phase 2, its videos and masks.  The
+    inversion (`steps` steps of the background video): exact, k = 2, k = 2
+    deep, k = 3 at depth 2, and invert_batch of the three videos exact and
+    at k = 2 deep.  The composite (`steps` run steps over the trajectories
+    of exact inversions, phase 2's gates and fusion): exact on the fused,
+    two_pass=True and stream paths, encoder reuse k = 2 on each, k = 2 at
+    depth 2 (fused), PAB k = 2 (fused), capture reuse k = 2 (two_pass=True,
+    stream), deep capture reuse k = 3 (stream), one capture broadcast over
+    every step (stream), and a batch of J = 2 entries (the second with the
+    objects' masks exchanged) with deep capture reuse k = 3 on stream.  Per
+    run: seconds per fresh and per cached step, K1 and K2 launches per
+    fresh and per cached step, the cache's bytes, peak memory, and the
+    drift from the exact run of its path.  Then FreeU on and off for one
+    fused step, and frameinit / warp_affine on the card against the CPU."""
+    import torch
+
+    from mvoc_tpu_torch.io.trajectory import TrajectoryStore
+    from mvoc_tpu_torch.ops import affine, freeinit
+    from mvoc_tpu_torch.pipeline import core
+
+    nf, size = len(videos[0]), videos[0][0].size[0]
+    runs, gates = {}, {}
+    reset_counts()
+
+    def run(tag, call, k, capture_reuse=False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with ReuseProbe(pipe, capture_reuse) as probe:
+            out, secs = sync_time(lambda: call(probe.on_step))
+        out = torch.as_tensor(out)
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"reuse {tag}: non-finite output")
+        stats = reuse_stats(probe, k, torch.cuda.max_memory_allocated() / 2**30, secs)
+        runs[tag] = dict(stats, out=out)
+        return out
+
+    inv_kw = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps, seed=seed)
+    inv_modes = (("exact", 1, {}), ("k2", 2, dict(encoder_reuse_interval=2)),
+                 ("k2 deep", 2, dict(encoder_reuse_interval=2, deep_reuse=True)),
+                 ("k3 depth2", 3, dict(encoder_reuse_interval=3, encoder_reuse_depth=2)),
+                 ("interval 1", 1, dict(encoder_reuse_interval=1, deep_reuse=True,
+                                        encoder_reuse_depth=2)))
+    for name, k, kw in inv_modes:
+        run(f"invert {name}", lambda cb, kw=kw: pipe.invert(
+            videos[0], **inv_kw, **kw, step_callback=cb)[1], k)
+    for name, k, kw in (("exact", 1, {}),
+                        ("k2 deep", 2, dict(encoder_reuse_interval=2, deep_reuse=True))):
+        run(f"invert_batch {name}", lambda cb, kw=kw: pipe.invert_batch(
+            videos, **inv_kw, **kw, step_callback=cb)[1], k)
+
+    # the composite's sources: exact inversions over its whole schedule
+    tmp = tempfile.mkdtemp(prefix="mvoc_smoke_reuse_")
+    try:
+        stores = []
+        for j, frames in enumerate(videos):
+            d = os.path.join(tmp, f"v{j}")
+            pipe.invert(frames, **dict(inv_kw, num_inference_steps=steps + 1), output_dir=d)
+            stores.append(TrajectoryStore(d))
+        comp_kw = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps + 1,
+                       guidance_scale=9.0, seed=seed, decode=False)
+
+        def entry(m):
+            return dict(prompt=PROMPT, main_first_image=videos[0][0], main_image_list=videos[0],
+                        background_image_list=videos[0], objs_image_list=videos[1:],
+                        masks_soft=m, masks_binary=m, bg_store=stores[0], obj_stores=stores[1:])
+
+        swapped = masks[::-1].copy()
+        comp_modes = (
+            ("fused exact", False, 1, {}), ("two_pass exact", True, 1, {}),
+            ("stream exact", "stream", 1, {}),
+            ("fused k2", False, 2, dict(encoder_reuse_interval=2)),
+            ("two_pass k2", True, 2, dict(encoder_reuse_interval=2)),
+            ("stream k2", "stream", 2, dict(encoder_reuse_interval=2)),
+            ("fused k2 depth2", False, 2, dict(encoder_reuse_interval=2, encoder_reuse_depth=2)),
+            ("fused pab k2", False, 2, dict(pab_interval=2)),
+            ("two_pass capture k2", True, 2, dict(capture_reuse_interval=2)),
+            ("stream capture k2", "stream", 2, dict(capture_reuse_interval=2)),
+            ("stream capture deep k3", "stream", 3,
+             dict(capture_reuse_interval=3, capture_reuse_deep=True)),
+            ("stream capture stale", "stream", 2 * steps,
+             dict(capture_reuse_interval=2 * steps)),
+            ("fused interval 1", False, 1,
+             dict(encoder_reuse_interval=1, encoder_reuse_depth=2, pab_interval=1)),
+            ("stream interval 1", "stream", 1,
+             dict(capture_reuse_interval=1, capture_reuse_deep=False)),
+        )
+        for name, two_pass, k, kw in comp_modes:
+            run(f"composite {name}", lambda cb, two_pass=two_pass, kw=kw: pipe.sample_composite(
+                **entry(masks), **comp_kw, two_pass=two_pass, **kw, step_callback=cb), k,
+                capture_reuse="capture" in name)
+        deep3 = dict(two_pass="stream", capture_reuse_interval=3, capture_reuse_deep=True)
+        run("composite stream capture deep k3, masks exchanged", lambda cb: pipe.sample_composite(
+            **entry(swapped), **comp_kw, **deep3, step_callback=cb), 3, capture_reuse=True)
+        run("composite_batch stream capture deep k3, J=2", lambda cb: pipe.sample_composite_batch(
+            [entry(masks), entry(swapped)], **comp_kw, **deep3, step_callback=cb), 3,
+            capture_reuse=True)
+
+        # one fused step with FreeU on, then off
+        init, cond, one, ms, pb, ps, _ = one_step_inputs(pipe, videos, masks, stores, steps + 1,
+                                                         seed, False)
+
+        def fused_step():
+            return core.pnp_composite_core(pipe._unet_apply(), pipe.ddim, init, cond, one, ms,
+                                           pb, ps, num_inference_steps=steps + 1,
+                                           guidance_scale=9.0)
+
+        plain = fused_step()
+        pipe.enable_freeu(s1=0.9, s2=0.2, b1=1.1, b2=1.2)
+        freeu_out = fused_step()
+        pipe.disable_freeu()
+        after = fused_step()
+    finally:
+        shutil.rmtree(tmp)
+    freeu = dict(rel_l2=_rel_l2(freeu_out, plain), finite=bool(torch.isfinite(freeu_out).all()),
+                 off_bitwise=bool(torch.equal(after, plain)))
+    log(f"reuse: FreeU (s1 0.9, s2 0.2, b1 1.1, b2 1.2), one fused step: rel_l2 {freeu['rel_l2']:.4g}"
+        f" from the plain step, finite {freeu['finite']}; after disable_freeu bitwise the plain "
+        f"step: {freeu['off_bitwise']}")
+    if not (freeu["finite"] and freeu["rel_l2"] > 0 and freeu["off_bitwise"]):
+        raise RuntimeError(f"reuse: FreeU on the card {freeu}")
+
+    # frameinit (the noise passed in) and warp_affine: card against CPU, fp32
+    g = np.random.default_rng(seed + 7)
+    lat = torch.from_numpy(g.standard_normal((nf, 64, 64, 4)).astype(np.float32))
+    noise = torch.from_numpy(g.standard_normal((nf, 64, 64, 4)).astype(np.float32))
+    alphas = pipe.ddim.alphas_cumprod
+    theta = affine.cv_affine_to_normalized(np.array([[0.8, 0.1, 5.0], [-0.1, 1.2, -3.0]]),
+                                           (64, 64), (64, 64))
+    ops = {"frameinit": lambda dev: freeinit.frameinit(lat.to(dev), alphas, noise=noise.to(dev)),
+           "warp_affine nearest": lambda dev: affine.warp_affine(lat.to(dev), theta, (64, 64)),
+           "warp_affine bilinear": lambda dev: affine.warp_affine(lat.to(dev), theta, (64, 64),
+                                                                  mode="bilinear")}
+    extras = {}
+    for name, fn in ops.items():
+        cpu, card = fn("cpu"), fn(CARD).cpu()
+        extras[name] = ((card - cpu).abs().max() / cpu.abs().max()).item()
+        log(f"reuse: {name} on the card vs the CPU (fp32): max |diff| {extras[name]:.3g} of "
+            f"max |x| (limit 1e-5)")
+        if not extras[name] <= 1e-5:
+            raise RuntimeError(f"reuse: {name} on the card disagrees with the CPU")
+
+    # drift from the exact run of each path, and the checks
+    def exact_of(tag):
+        if tag.startswith("invert_batch"):
+            return "invert_batch exact"
+        if tag.startswith("invert"):
+            return "invert exact"
+        return "composite " + tag.split()[1] + " exact"
+
+    for tag, r in runs.items():
+        if tag.endswith("exact") or "J=2" in tag or "exchanged" in tag:
+            continue
+        ex = runs[exact_of(tag)]
+        r.update(rel_l2=_rel_l2(r["out"], ex["out"]), max_rel=_rel(r["out"], ex["out"]),
+                 speed=r["mean_step_s"] / ex["mean_step_s"])
+    for tag, r in runs.items():
+        gb = r["cache_bytes"] / 1e9
+        log(f"reuse {tag}: steps {[round(t, 4) for t in r['step_s']]} s (fresh {r['fresh']}); "
+            f"s/step fresh {r['fresh_step_s']:.4f} cached {fmt_ms(r['cached_step_s'])}; K1+K2 "
+            f"launches per fresh step {r['k1k2_fresh']} (K1 {r['k1_fresh']}, K2 {r['k2_fresh']}) "
+            f"per cached step {r['k1k2_cached']} (K1 {r['k1_cached']}, K2 {r['k2_cached']}); cache "
+            f"{gb:.3f} GB; peak {r['peak_gib']:.2f} GiB" + (
+                f"; mean s/step {r['speed']:.3f}x the exact run; rel_l2 {r['rel_l2']:.4g}, max "
+                f"|diff| / max |x| {r['max_rel']:.4g} from it" if "speed" in r else ""))
+        if "interval 1" in tag:
+            if not torch.equal(r["out"], runs[exact_of(tag)]["out"]):
+                raise RuntimeError(f"reuse {tag}: not bitwise the exact run")
+            continue
+        if r["k1k2_cached"] is not None:
+            if not r["k1k2_cached"] < r["k1k2_fresh"]:
+                raise RuntimeError(f"reuse {tag}: a cached step launched {r['k1k2_cached']} K1+K2, "
+                                   f"a fresh one {r['k1k2_fresh']}")
+            if "speed" in r and not r["rel_l2"] > 0:
+                raise RuntimeError(f"reuse {tag}: equal to the exact run: the knob did nothing")
+    stale, k2 = runs["composite stream capture stale"], runs["composite stream capture k2"]
+    gates["stale capture rel_l2 over k2's"] = (stale["rel_l2"], k2["rel_l2"])
+    log(f"reuse: one capture broadcast over all {steps} steps drifts rel_l2 {stale['rel_l2']:.4g} "
+        f"from the exact stream run, k = 2 {k2['rel_l2']:.4g} (the stale one must drift further)")
+    if not stale["rel_l2"] > k2["rel_l2"]:
+        raise RuntimeError("reuse: the stale capture drifts no further than k = 2")
+    batch = runs["composite_batch stream capture deep k3, J=2"]["out"]
+    singles = (runs["composite stream capture deep k3"]["out"],
+               runs["composite stream capture deep k3, masks exchanged"]["out"])
+    for name, got, want, fault in (("entry 0 vs its single run", batch[0], singles[0], False),
+                                   ("entry 1 vs its single run", batch[1], singles[1], False),
+                                   ("entry 1 (masks exchanged) vs entry 0's single run",
+                                    batch[1], singles[0], True)):
+        rel = _rel(got, want)
+        gates[f"batch {name}"] = rel
+        log(f"reuse: batched deep capture reuse, {name}: {rel:.4g} of max |x| (TOL_BATCH "
+            f"{TOL_BATCH}, {'over' if fault else 'under'} it to pass)")
+        if fault != (rel > TOL_BATCH) or not math.isfinite(rel):
+            raise RuntimeError(f"reuse: batched {name} at {rel:.4g}")
+    launches, shapes = read_counts()
+    for r in runs.values():
+        r.pop("out")
+    return dict(runs=runs, gates=gates, freeu=freeu, extras=extras, shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -952,6 +1298,59 @@ def batch_cli_phase(cli: dict, steps: int, tmp: str) -> dict:
     return dict(run, gates=gates, per=per, profile=profile, breakdown=breakdown,
                 elementwise_booked_share=elem_in / elem if elem else None,
                 unet_share=unet_share)
+
+def cli_reuse_phase(cli: dict, tmp: str) -> dict:
+    """Phase 7c: both CLIs with the reuse modes at 1280 x 720 on phase 7's
+    pipeline and demo tree.  The inversion CLI on the bg entry (its
+    reconstruction on) with `encoder_reuse_interval: auto`,
+    reuse_auto_candidates [3, 2], reuse_auto_probe_steps 4 and deep_reuse,
+    its store recomputed; the composite CLI on the one entry with
+    pab_interval: 2 on its fused path (the template otherwise unchanged),
+    then the same composite exact through sample_composite for the drift.
+    Prints the auto report, the stage times, the launches, the peak memory
+    and the PAB cache's bytes."""
+    import torch
+
+    from mvoc_tpu_torch import config as cfglib
+    from mvoc_tpu_torch.cli import composite, inverse
+
+    pipe, templates, paths = cli["pipe"], cli["templates"], cli["paths"]
+    inv_cfgs = [c for c in inverse.configure(templates["inversion"],
+                                             cfglib.load_json_list(paths["inversion"]))
+                if c.video_name == "bg"]
+    for cfg in inv_cfgs:
+        inv = cfg.inverse_config
+        inv.encoder_reuse_interval = "auto"
+        inv.reuse_auto_candidates = [3, 2]
+        inv.reuse_auto_probe_steps = 4
+        inv.deep_reuse = True
+        cfg.inverse_config = inv
+        cfg.force_recompute_latents = True
+    comp_cfgs = composite.configure(cfglib.merge(templates["composite"], {"pab_interval": 2}),
+                                    cfglib.load_json_list(paths["composite"]))
+    with ReuseProbe(pipe) as probe:  # the PAB dict's bytes (no step callback: the CLI's)
+        run = run_clis(pipe, inv_cfgs, comp_cfgs, batch=False, tag="cli-reuse")
+    inv = inv_cfgs[0].inverse_config
+    report = [dict(r) for r in inv.get("reuse_auto_report", [])]
+    log(f"cli-reuse: encoder_reuse_interval auto for bg chose k = {inv.encoder_reuse_interval} "
+        f"(deep_reuse {inv.deep_reuse}); probes (4 steps each, random weights: the PSNR only "
+        f"shows that the probe ran): {report}")
+    if not report or not all(math.isfinite(r["psnr_db"]) for r in report):
+        raise RuntimeError(f"cli-reuse: the auto probe did not run: {report}")
+    cache_gb = max(b for tags, b in probe.call_bytes if tags == ("pab_capture",)) / 1e9
+    final = run.pop("finals")[-1]
+    per_entry, static, _ = composite._entry_inputs(pipe, comp_cfgs[0])
+    exact = pipe.sample_composite(**per_entry, **dict(static, pab_interval=1), decode=False)
+    drift = dict(rel_l2=_rel_l2(final, exact), max_rel=_rel(final, exact))
+    log(f"cli-reuse: the PAB composite (pab_interval 2, fused, {CLI_SIZE[0]}x{CLI_SIZE[1]}): "
+        f"steps {[round(t, 3) for t in run['composite_step_s']]} s (fresh, cached); PAB cache "
+        f"{cache_gb:.3f} GB; drift from the exact composite on the same stores: rel_l2 "
+        f"{drift['rel_l2']:.4g}, max |diff| / max |x| {drift['max_rel']:.4g}")
+    if not (torch.isfinite(final).all() and drift["rel_l2"] > 0):
+        raise RuntimeError(f"cli-reuse: PAB composite non-finite or exact ({drift})")
+    return dict(run, report=report, k=int(inv.encoder_reuse_interval), pab_cache_gb=cache_gb,
+                drift=drift)
+
 
 def tiled_decode_phase(pipe, final, nf: int, height: int, width: int) -> dict:
     """The composite's final latents decoded as the CLI did (untiled, one
@@ -1508,6 +1907,11 @@ def main() -> int:
         raise RuntimeError("the card's int8 activations disagree with the CPU's")
     torch.cuda.empty_cache()
 
+    # 6b. the reuse and broadcast modes at 512 px, on phase 2's bf16 pipeline
+    # (before phase 5 quantizes it)
+    reuse = reuse_phase(pipe, videos, masks, args.seed)
+    torch.cuda.empty_cache()
+
     # 5. the int8 slice (mixed selection) on the same weights
     _, q_secs = sync_time(lambda: pipe.enable_int8(mode="mixed"))
     n_q = sum(isinstance(m, (Q.QuantLinear, Q.QuantConv)) for m in pipe.unet.modules())
@@ -1559,6 +1963,8 @@ def main() -> int:
         cli = cli_phase(args.steps, args.seed, ckpt["dir"], cli_root)
         # 7b. both CLIs batched, on the same pipeline and demo tree
         cli_b = batch_cli_phase(cli, args.steps, cli_root)
+        # 7c. both CLIs with the reuse modes, on the same pipeline and demo tree
+        cli_r = cli_reuse_phase(cli, cli_root)
         for key in ("pipe", "final", "templates", "paths", "inv_cfgs", "comp_cfgs"):
             cli.pop(key)
         torch.cuda.empty_cache()
@@ -1572,7 +1978,8 @@ def main() -> int:
     for name in ("flash_attention", "frame_attention"):
         attn_shapes[name] = dict(bf16["shapes"][name])
         for sig in (list(cli["shapes"][name]) + list(cli["tiled"]["shapes"][name])
-                    + list(cli_b["shapes"][name])):
+                    + list(cli_b["shapes"][name]) + list(reuse["shapes"][name])
+                    + list(cli_r["shapes"][name])):
             attn_shapes[name].setdefault(sig, 0)
     plans = (
         ("flash_attention", flash_phase, attn_shapes["flash_attention"],
@@ -1590,6 +1997,8 @@ def main() -> int:
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
                        cli_launches=cli["shapes"].get(name, {}).get(sig, 0),
                        cli_batch_launches=cli_b["shapes"].get(name, {}).get(sig, 0),
+                       reuse_launches=reuse["shapes"].get(name, {}).get(sig, 0),
+                       cli_reuse_launches=cli_r["shapes"].get(name, {}).get(sig, 0),
                        tiled_launches=cli["tiled"]["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
@@ -1615,6 +2024,8 @@ def main() -> int:
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
                 f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}, "
                 f"batched-CLI launches {row['cli_batch_launches']}, "
+                f"reuse launches {row['reuse_launches']}, "
+                f"reuse-CLI launches {row['cli_reuse_launches']}, "
                 f"tiled-decode launches {row['tiled_launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
@@ -1673,6 +2084,8 @@ def main() -> int:
             cli=dict({k: v for k, v in cli.items() if k not in ("shapes", "tiled")},
                      tiled={k: v for k, v in cli["tiled"].items() if k != "shapes"}),
             cli_batched={k: v for k, v in cli_b.items() if k != "shapes"},
+            reuse={k: v for k, v in reuse.items() if k != "shapes"},
+            cli_reuse={k: v for k, v in cli_r.items() if k != "shapes"},
             phases=table), f, indent=1)
 
     # one row per kernel, from this slice's path that launched it (K1, K2:
@@ -1680,7 +2093,7 @@ def main() -> int:
     # every path; the row's times at the shape that path spends most on
     by_path = {"bf16": bf16["launches"], "int8-mixed": int8["launches"],
                "int8-full-step": full_launch, "cli": cli["launches"],
-               "cli-batched": cli_b["launches"]}
+               "cli-batched": cli_b["launches"], "cli-reuse": cli_r["launches"]}
     count_key = {"flash_attention": "cli_launches", "frame_attention": "cli_launches",
                  "s8_matmul": "launches"}
     kernels = []

@@ -130,12 +130,18 @@ def _entry_inputs(pipe, config):
         # reference quirk (default on): per-frame CLIP inputs are the
         # UNCROPPED frames resized (pipeline_i2vgen_xl.py:1505-1508)
         strict_reference_crop=config.get("strict_reference_crop", True),
-        # the JAX package's reuse / broadcast extensions: only their exact
-        # defaults run here (the pipeline refuses any other value)
+        # training-free encoder reuse (not in the reference); 1 = exact
         encoder_reuse_interval=config.get("encoder_reuse_interval", 1),
         encoder_reuse_depth=config.get("encoder_reuse_depth", None),
+        # PAB attention-output broadcast on the fused path (approximate;
+        # 1 = off, exact)
         pab_interval=config.get("pab_interval", 1),
+        # broadcast the captured PnP source features across steps on
+        # two_pass / stream: cached steps skip the N+1 capture forwards
+        # (approximate; 1 = off, exact)
         capture_reuse_interval=config.get("capture_reuse_interval", 1),
+        # deep variant: cached steps also reuse the edit pair's encoder and
+        # up-block attention outputs
         capture_reuse_deep=config.get("capture_reuse_deep", False),
         two_pass=config.get("two_pass", False),
         pnp_f_t=config.pnp_f_t,

@@ -29,6 +29,7 @@ from mvoc_tpu_torch.cli import common
 from mvoc_tpu_torch.io import media
 from mvoc_tpu_torch.io.trajectory import NATIVE_NAME, STACK_NAME, TrajectoryStore
 from mvoc_tpu_torch.ops.ddim import sampling_timesteps
+from mvoc_tpu_torch.utils.autoreuse import resolve_auto_reuse
 from mvoc_tpu_torch.utils.metrics import psnr, ssim
 from mvoc_tpu_torch.utils.profiling import StepTimer, save_run_config, trace
 
@@ -221,13 +222,13 @@ def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None,
     signature first go through one batched step loop (stage
     "invert/batched").  Returns the timer."""
     for config in configs:
-        # `encoder_reuse_interval: auto` probes each uncached entry's video
-        # in the JAX package (utils/autoreuse.py)
+        # `encoder_reuse_interval: auto`: probe this entry's own video and pick
+        # the largest k that clears the reconstruction PSNR bar
+        # (utils/autoreuse.py); cached entries skip the probe
         if (config.inverse_config.get("encoder_reuse_interval", 1) == "auto"
                 and not _has_valid_cache(config)):
-            raise NotImplementedError(
-                f"{config.get('video_name', '?')}: encoder_reuse_interval: auto is not ported "
-                "yet (ROADMAP.md §1 item 4: reuse modes)")
+            logger.info("resolving auto reuse interval for %s", config.get("video_name", "?"))
+            resolve_auto_reuse(pipe, config)
     timer = timer or StepTimer()
     with trace(profile_dir):
         if batch and len(configs) > 1:

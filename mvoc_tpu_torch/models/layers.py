@@ -292,14 +292,31 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 attn1_qk_edit: Optional[QKEdit] = None,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        hidden_states = self.attn1(self.norm1(hidden_states), qk_edit=attn1_qk_edit,
-                                   attn_mask=attn_mask) + hidden_states
+                attn_mask: Optional[torch.Tensor] = None,
+                pab: Optional[tuple] = None) -> torch.Tensor:
+        """pab = (cache, rec, site): PAB attention-output broadcast.  With a
+        cache (site key -> output) each attention sublayer is skipped whole
+        (projections, kernel, out-projection and any Q/K edit) and its stored
+        output reused; rec, when given, collects every sublayer's output
+        under f"{site}.a1" / ".a2".  The norms, residuals and FF stay fresh."""
+        def run_attn(name: str, compute):
+            if pab is None:
+                return compute()
+            cache, rec, site = pab
+            key = f"{site}.{name}"
+            out = cache[key] if cache is not None else compute()
+            if rec is not None:
+                rec[key] = out
+            return out
+
+        h1 = self.norm1(hidden_states)
+        hidden_states = run_attn("a1", lambda: self.attn1(
+            h1, qk_edit=attn1_qk_edit, attn_mask=attn_mask)) + hidden_states
         h2 = self.norm2(hidden_states)
         if self.double_self_attention:
-            h = self.attn2(h2, attn_mask=attn_mask)
+            h = run_attn("a2", lambda: self.attn2(h2, attn_mask=attn_mask))
         else:
-            h = self.attn2(h2, encoder_hidden_states=encoder_hidden_states)
+            h = run_attn("a2", lambda: self.attn2(h2, encoder_hidden_states=encoder_hidden_states))
         hidden_states = h + hidden_states
         return self.ff(self.norm3(hidden_states)) + hidden_states
 
@@ -322,13 +339,15 @@ class Transformer2DModel(nn.Module):
         self.proj_out = nn.Linear(inner, in_channels)
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                attn1_qk_edit: Optional[QKEdit] = None) -> torch.Tensor:
+                attn1_qk_edit: Optional[QKEdit] = None,
+                pab: Optional[tuple] = None) -> torch.Tensor:
         bf, h, w, c = hidden_states.shape
         x = self.norm(hidden_states).reshape(bf, h * w, c)
         x = self.proj_in(x)
         for i, block in enumerate(self.transformer_blocks):
             x = block(x, encoder_hidden_states,
-                      attn1_qk_edit=attn1_qk_edit if i == 0 else None)
+                      attn1_qk_edit=attn1_qk_edit if i == 0 else None,
+                      pab=(pab[0], pab[1], f"{pab[2]}.b{i}") if pab else None)
         return self.proj_out(x).reshape(bf, h, w, c) + hidden_states
 
 
@@ -358,7 +377,8 @@ class TransformerTemporalModel(nn.Module):
         self.proj_out = nn.Linear(inner, in_channels)
 
     def forward(self, hidden_states: torch.Tensor, num_frames: int,
-                attn1_qk_edit: Optional[QKEdit] = None) -> torch.Tensor:
+                attn1_qk_edit: Optional[QKEdit] = None,
+                pab: Optional[tuple] = None) -> torch.Tensor:
         bf, h, w, c = hidden_states.shape
         b = bf // num_frames
         x = self.norm(hidden_states.reshape(b, num_frames, h, w, c))
@@ -372,7 +392,8 @@ class TransformerTemporalModel(nn.Module):
             idx = torch.arange(num_frames, device=x.device)
             attn_mask = (idx[:, None] - idx[None, :]).abs() <= self.window // 2
         for i, block in enumerate(self.transformer_blocks):
-            x = block(x, attn1_qk_edit=attn1_qk_edit if i == 0 else None, attn_mask=attn_mask)
+            x = block(x, attn1_qk_edit=attn1_qk_edit if i == 0 else None, attn_mask=attn_mask,
+                      pab=(pab[0], pab[1], f"{pab[2]}.b{i}") if pab else None)
         x = self.proj_out(x)
         if self.natural_layout:
             x = x.reshape(bf, h, w, c)

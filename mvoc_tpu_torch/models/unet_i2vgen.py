@@ -110,6 +110,45 @@ class UNetConfig:
                           cross_attention_dim=16, attention_head_dim=4, transformer_in_heads=2)
 
 
+@dataclasses.dataclass(frozen=True)
+class FreeUConfig:
+    """FreeU up-block re-weighting (the reference's enable_freeu passthrough):
+    b1 / b2 amplify the backbone features, s1 / s2 scale the Fourier low band
+    of the skip features, in up blocks 0 and 1."""
+
+    s1: float = 0.9
+    s2: float = 0.2
+    b1: float = 1.1
+    b2: float = 1.2
+
+
+def _fourier_filter(x: torch.Tensor, threshold: int, scale: float) -> torch.Tensor:
+    """Scale the centred low-frequency box of the spatial FFT of x [BF, H, W,
+    C] (channels-last) by `scale`: FreeU's skip filter."""
+    _, h, w, _ = x.shape
+    xf = torch.fft.fftshift(torch.fft.fft2(x.float().to(torch.complex64), dim=(1, 2)), dim=(1, 2))
+    yy = (torch.arange(h, device=x.device) - h // 2).abs() < threshold
+    xx = (torch.arange(w, device=x.device) - w // 2).abs() < threshold
+    mask = torch.where(yy[:, None] & xx[None, :], scale, 1.0)
+    xf = xf * mask[None, :, :, None]
+    out = torch.fft.ifft2(torch.fft.ifftshift(xf, dim=(1, 2)), dim=(1, 2))
+    return out.real.to(x.dtype)
+
+
+def apply_freeu(block_index: int, hidden: torch.Tensor, skip: torch.Tensor,
+                freeu: Optional[FreeUConfig]):
+    """(hidden, skip) re-weighted at the start of each layer of up blocks 0
+    and 1; unchanged elsewhere and without a config."""
+    if freeu is None or block_index > 1:
+        return hidden, skip
+    b = freeu.b1 if block_index == 0 else freeu.b2
+    s = freeu.s1 if block_index == 0 else freeu.s2
+    c = hidden.shape[-1]
+    scale = torch.cat([torch.full((c // 2,), b, dtype=hidden.dtype, device=hidden.device),
+                       torch.ones((c - c // 2,), dtype=hidden.dtype, device=hidden.device)])
+    return hidden * scale, _fourier_filter(skip, threshold=1, scale=s)
+
+
 # ---------------------------------------------------------------------------
 # PnP edit / capture hooks
 # ---------------------------------------------------------------------------
@@ -313,10 +352,15 @@ class UpBlock3D(_Block3D):
                            if add_upsample else None)
 
     def forward(self, x, res_samples, temb, context, num_frames, upsample_size=None,
-                pnp=None, capture=None):
+                pnp=None, capture=None, freeu=None, pab_cache=None, pab_rec=None):
+        """pab_cache / pab_rec: the PAB cache to read and the dict to record
+        into (attention sublayers keyed sp{block}_{layer} / tm{block}_{layer});
+        only the cross-attention up blocks have attention to broadcast."""
         bi, sites = self.block_index, self.sites
+        pab_on = pab_cache is not None or pab_rec is not None
         for i in range(len(self.resnets)):
-            x = torch.cat([x, res_samples[-1 - i]], dim=-1)
+            x, skip = apply_freeu(bi, x, res_samples[-1 - i], freeu)
+            x = torch.cat([x, skip], dim=-1)
             hc, wc = x.shape[1], x.shape[2]
             x = self.resnets[i](x, temb, pnp_edit=_conv_edit(
                 pnp, hc, wc, f"resnet_{bi}_{i}", capture) if i in sites.resnet_at(bi) else None)
@@ -325,10 +369,12 @@ class UpBlock3D(_Block3D):
             if self.attentions is not None:
                 x = self.attentions[i](x, context, attn1_qk_edit=_spatial_qk_edit(
                     pnp, hc, wc, f"spatial_{bi}_{i}", capture)
-                    if i in sites.spatial_at(bi) else None)
+                    if i in sites.spatial_at(bi) else None,
+                    pab=(pab_cache, pab_rec, f"sp{bi}_{i}") if pab_on else None)
                 x = self.temp_attentions[i](x, num_frames, attn1_qk_edit=_temporal_qk_edit(
                     pnp, hc, wc, f"temporal_{bi}_{i}", capture, self.natural)
-                    if i in sites.temporal_at(bi) else None)
+                    if i in sites.temporal_at(bi) else None,
+                    pab=(pab_cache, pab_rec, f"tm{bi}_{i}") if pab_on else None)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x, upsample_size)
         return x
@@ -414,21 +460,24 @@ class I2VGenXLUNet(nn.Module):
         # a norm's weight: it keeps the model dtype when convs quantize to int8
         return self.conv_norm_out.weight.dtype
 
-    def _context(self, b, f, h, w, image_latents, image_embeddings, encoder_hidden_states):
-        """Per-frame context [B*F, 77 + 64 + C_in, D] from frame 0's image
-        embedding and image latents (the reference's default; its
-        multi_frame_guidance option is not ported)."""
+    def _context(self, b, f, h, w, image_latents, image_embeddings, encoder_hidden_states,
+                 multi_frame_guidance: bool = False):
+        """Per-frame context [B*F, 77 + 64 + C_in, D]: from frame 0's image
+        embedding and image latents (the reference's default), or with
+        multi_frame_guidance from every frame's."""
         c_in, d_ctx = self.config.in_channels, self.config.cross_attention_dim
-        image_embeddings = image_embeddings[:, 0:1].expand(b, f, image_embeddings.shape[-1])
+        if not multi_frame_guidance:
+            image_embeddings = image_embeddings[:, 0:1].expand(b, f, image_embeddings.shape[-1])
+        n_ctx = f if multi_frame_guidance else 1
         ce = self.image_latents_context_embedding
         with _scope("image_latents_context_embedding"):
-            il = image_latents[:, :1].reshape(b, h, w, c_in)
+            il = image_latents[:, :n_ctx].reshape(b * n_ctx, h, w, c_in)
             il = F.silu(ce[0](il))
             il = F.adaptive_avg_pool2d(il.permute(0, 3, 1, 2).float(), (32, 32))
             il = il.permute(0, 2, 3, 1).to(self.dtype)
             il = ce[5](F.silu(ce[3](il)))
         n_tok = il.shape[1] * il.shape[2]
-        il_tokens = il.reshape(b, 1, n_tok, d_ctx).expand(b, f, n_tok, d_ctx)
+        il_tokens = il.reshape(b, n_ctx, n_tok, d_ctx).expand(b, f, n_tok, d_ctx)
         with _scope("context_embedding"):
             ie = self.context_embedding[2](F.silu(self.context_embedding[0](image_embeddings)))
         ie_tokens = ie.reshape(b, f, c_in, d_ctx)
@@ -436,9 +485,37 @@ class I2VGenXLUNet(nn.Module):
         ctx = torch.cat([text, il_tokens, ie_tokens], dim=2)
         return ctx.reshape(b * f, -1, d_ctx)
 
+    def _entries_before_block(self, k: int) -> int:
+        """Skip-stack entries made before down block k: the conv_in /
+        transformer_in entry, then layers_per_block per block (+1 for each
+        downsampler)."""
+        cfg = self.config
+        n_blocks = len(cfg.block_out_channels)
+        return 1 + sum(cfg.layers_per_block + (1 if i < n_blocks - 1 else 0) for i in range(k))
+
     def forward(self, sample, timestep, fps, image_latents_first, image_latents,
                 image_embeddings, encoder_hidden_states,
-                pnp: Optional[pnp_lib.PnPState] = None, pnp_capture: bool = False):
+                pnp: Optional[pnp_lib.PnPState] = None, pnp_capture: bool = False,
+                multi_frame_guidance: bool = False, freeu: Optional[FreeUConfig] = None,
+                cached_encoder: Optional[tuple] = None, return_encoder: bool = False,
+                encoder_reuse_depth: Optional[int] = None, pab_cache: Optional[dict] = None,
+                pab_capture: bool = False):
+        """The predicted noise [B, F, H, W, C_out]; with pnp_capture,
+        return_encoder or pab_capture a tuple (noise, then in this order the
+        captured PnP features, the encoder cache, the PAB dict).
+
+        Encoder reuse: return_encoder returns the encoder cache
+        (mid_features, skip_stack); a later forward given it as
+        cached_encoder skips the stem, the down blocks and the mid block and
+        runs only the up blocks on it.  With encoder_reuse_depth = k only the
+        skips of down blocks k.. and the mid features are cached; a cached
+        forward recomputes the stem and down blocks 0..k-1 and splices the
+        cached deep part in.  PAB: pab_capture records every up-block
+        attention sublayer's output; a forward given that dict as pab_cache
+        skips those sublayers (q/k/v, the kernel, the out-projection and any
+        PnP Q/K edit) and reuses the outputs, while the residual stream, the
+        convs and the FFs stay fresh.  Both are approximate when a cache is
+        reused on a later step."""
         cfg = self.config
         dt, dev = self.dtype, self.conv_norm_out.weight.device
         b, f, h, w, c_in = sample.shape
@@ -457,31 +534,47 @@ class I2VGenXLUNet(nn.Module):
             emb = emb + self.fps_embedding(timestep_embedding(fps, ch0).to(dt))
         emb = emb.repeat_interleave(f, dim=0)  # [B*F, temb]
 
-        context = self._context(b, f, h, w, image_latents, image_embeddings,
-                                encoder_hidden_states)
+        depth = encoder_reuse_depth
+        n_down = len(self.down_blocks)
+        # the down blocks this forward runs; the context feeds their attention
+        # and the up blocks' unless every up-block attention is broadcast
+        n_run = n_down if cached_encoder is None else (0 if depth is None else depth)
+        context = None
+        if n_run > 0 or pab_cache is None:
+            context = self._context(b, f, h, w, image_latents, image_embeddings,
+                                    encoder_hidden_states, multi_frame_guidance)
 
-        pi = self.image_latents_proj_in
-        with _scope("image_latents_proj_in"):
-            ilf = image_latents_first.reshape(b * f, h, w, c_in)
-            ilf = pi[4](F.silu(pi[2](F.silu(pi[0](ilf)))))
-        with _scope("image_latents_temporal_encoder"):
-            ilf = ilf.reshape(b, f, h, w, c_in).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c_in)
-            ilf = self.image_latents_temporal_encoder(ilf)
-            ilf = ilf.reshape(b, h, w, f, c_in).permute(0, 3, 1, 2, 4).reshape(b * f, h, w, c_in)
-
-        with _scope("conv_in"):
-            x = self.conv_in(torch.cat([sample.reshape(b * f, h, w, c_in), ilf], dim=-1))
-        with _scope("transformer_in"):
-            x = self.transformer_in(x, f)
-        res_stack = [x]
-        for i, blk in enumerate(self.down_blocks):
-            with _scope(f"down_blocks.{i}"):
-                x, res = blk(x, emb, context, f)
-            res_stack.extend(res)
-        with _scope("mid_block"):
-            x = self.mid_block(x, emb, context, f)
+        res_stack: list = []
+        if cached_encoder is None or depth is not None:
+            pi = self.image_latents_proj_in
+            with _scope("image_latents_proj_in"):
+                ilf = image_latents_first.reshape(b * f, h, w, c_in)
+                ilf = pi[4](F.silu(pi[2](F.silu(pi[0](ilf)))))
+            with _scope("image_latents_temporal_encoder"):
+                ilf = ilf.reshape(b, f, h, w, c_in).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c_in)
+                ilf = self.image_latents_temporal_encoder(ilf)
+                ilf = ilf.reshape(b, h, w, f, c_in).permute(0, 3, 1, 2, 4).reshape(b * f, h, w, c_in)
+            with _scope("conv_in"):
+                x = self.conv_in(torch.cat([sample.reshape(b * f, h, w, c_in), ilf], dim=-1))
+            with _scope("transformer_in"):
+                x = self.transformer_in(x, f)
+            res_stack = [x]
+            for i, blk in enumerate(self.down_blocks[:n_run]):
+                with _scope(f"down_blocks.{i}"):
+                    x, res = blk(x, emb, context, f)
+                res_stack.extend(res)
+        if cached_encoder is None:
+            with _scope("mid_block"):
+                x = self.mid_block(x, emb, context, f)
+            cut = 0 if depth is None else self._entries_before_block(depth)
+            encoder_features = (x, tuple(res_stack[cut:]))
+        else:
+            x, deep_skips = cached_encoder
+            res_stack = res_stack + list(deep_skips)
+            encoder_features = cached_encoder
 
         capture: Optional[dict] = {} if pnp_capture else None
+        pab_rec: Optional[dict] = {} if pab_capture else None
         n_up = cfg.layers_per_block + 1
         for i, blk in enumerate(self.up_blocks):
             res = res_stack[-n_up:]
@@ -489,7 +582,8 @@ class I2VGenXLUNet(nn.Module):
             final = i == len(self.up_blocks) - 1
             upsample_size = tuple(res_stack[-1].shape[1:3]) if (not final and res_stack) else None
             with _scope(f"up_blocks.{i}"):
-                x = blk(x, res, emb, context, f, upsample_size, pnp, capture)
+                x = blk(x, res, emb, context, f, upsample_size, pnp, capture, freeu,
+                        pab_cache, pab_rec)
 
         with _scope("conv_norm_out"):
             x = F.silu(self.conv_norm_out(x))
@@ -502,6 +596,6 @@ class I2VGenXLUNet(nn.Module):
                 elif pnp is not None:
                     x = _conv_edit(pnp, hh, ww, "out_conv", None)(x)
         out = x.reshape(b, f, h, w, cfg.out_channels)
-        if capture is not None:
-            return out, capture
-        return out
+        extra = ((capture,) if pnp_capture else ()) + (
+            (encoder_features,) if return_encoder else ()) + ((pab_rec,) if pab_capture else ())
+        return (out,) + extra if extra else out

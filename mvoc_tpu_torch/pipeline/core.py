@@ -10,6 +10,11 @@ The batch cores run J independent videos (inversion) or group entries
 (composite) in one step loop, the entries riding the UNet's batch axis
 entry-major: one UNet call per step covers all J entries (the JAX package
 vmaps its single-entry scans instead).
+
+The reuse and broadcast modes (encoder reuse, PAB, capture reuse) follow
+the JAX package's blockwise schedule as a plain loop: run step i is fresh
+iff i % k == 0 (fresh_steps); a fresh step computes the cache, the next
+k - 1 steps read it, and it stays on the device until the next fresh step.
 """
 
 from __future__ import annotations
@@ -66,41 +71,102 @@ def prepare_image_latents(first_frame_latents: torch.Tensor, num_frames: int) ->
     return torch.cat([first_frame_latents[None], planes], dim=0)
 
 
+def fresh_steps(n_steps: int, k: int) -> list[bool]:
+    """The reuse schedule of the JAX package's blockwise scan: run step i is
+    fresh (computes its cache) iff i % k == 0, so every block of k steps,
+    and the remainder block, starts fresh; k <= 1 makes every step fresh."""
+    return [k <= 1 or i % k == 0 for i in range(n_steps)]
+
+
+def _inversion_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetConditioning,
+                    timesteps, num_inference_steps: int, branches,
+                    encoder_reuse_interval: int, deep_reuse: bool, step_callback):
+    """The inversion step loop shared by both inversion cores: `branches(lat)`
+    builds the UNet batch and `eps = branches.guide(eps)` the guided noise.
+    With encoder_reuse_interval = k > 1 a fresh step caches the encoder
+    (deep_reuse: and the up blocks' attention outputs) and the next k - 1
+    steps reuse it; the cache stays on the device and dies at the next
+    fresh step."""
+    k = int(encoder_reuse_interval)
+    ts = np.asarray(timesteps)
+    schedule = fresh_steps(len(ts), k)
+    kw = cond.unet_kwargs()
+    cache = None
+    traj = []
+    for i, t in enumerate(ts):
+        t = int(t)
+        inp = branches(latents)
+        if k <= 1:
+            eps = unet(inp, t, **kw)
+        elif schedule[i]:
+            cache = None
+            if deep_reuse:
+                eps, enc, attn = unet(inp, t, **kw, return_encoder=True, pab_capture=True)
+                cache = (enc, attn)
+            else:
+                eps, cache = unet(inp, t, **kw, return_encoder=True)
+        elif deep_reuse:
+            eps = unet(inp, t, **kw, cached_encoder=cache[0], pab_cache=cache[1])
+        else:
+            eps = unet(inp, t, **kw, cached_encoder=cache)
+        latents = ddim.inverse_step(branches.guide(eps), t, latents, num_inference_steps)
+        traj.append(latents)
+        if step_callback is not None:
+            step_callback(i)
+    return torch.stack(traj)
+
+
+class _Branches:
+    """The inversion's UNet batch: the latents broadcast over n branches
+    ([uncond, cond] under CFG), or, for the batch core, the J videos as
+    they are (n = None); guide() applies the guidance."""
+
+    def __init__(self, n: Optional[int], guidance_scale: float = 1.0):
+        self.n, self.scale = n, guidance_scale
+
+    def __call__(self, lat):
+        return lat if self.n is None else lat[None].expand((self.n,) + tuple(lat.shape))
+
+    def guide(self, eps):
+        if self.n is None:
+            return eps
+        return eps[0] + self.scale * (eps[1] - eps[0]) if self.n == 2 else eps[0]
+
+
 @torch.inference_mode()
 def ddim_inversion_core(unet, ddim: DDIM, x0_latents: torch.Tensor, cond: UNetConditioning,
-                        timesteps, num_inference_steps: int,
-                        guidance_scale: float = 1.0) -> torch.Tensor:
+                        timesteps, num_inference_steps: int, guidance_scale: float = 1.0,
+                        encoder_reuse_interval: int = 1, deep_reuse: bool = False,
+                        step_callback=None) -> torch.Tensor:
     """DDIM inversion.  Returns the trajectory [S, F, h, w, C]: entry i is
-    the latents at timesteps[i] (ascending)."""
+    the latents at timesteps[i] (ascending).
+
+    encoder_reuse_interval = k > 1: training-free encoder reuse, the UNet's
+    down and mid features computed on every k-th step and reused in
+    between; deep_reuse also broadcasts the up blocks' attention outputs
+    (PAB), so a cached step computes only the up blocks' convs and FFs and
+    the inverse update.  Bind encoder_reuse_depth into `unet` for the
+    partial-depth cache (as the pipeline does).  step_callback(i), when
+    given, runs after each step."""
     do_cfg = guidance_scale > 1.0
-    n_branches = 2 if do_cfg else 1
-    latents = x0_latents
-    traj = []
-    for t in np.asarray(timesteps):
-        inp = latents[None].expand((n_branches,) + tuple(latents.shape))
-        eps = unet(inp, int(t), **cond.unet_kwargs())
-        eps = eps[0] + guidance_scale * (eps[1] - eps[0]) if do_cfg else eps[0]
-        latents = ddim.inverse_step(eps, int(t), latents, num_inference_steps)
-        traj.append(latents)
-    return torch.stack(traj)
+    return _inversion_loop(unet, ddim, x0_latents, cond, timesteps, num_inference_steps,
+                           _Branches(2 if do_cfg else 1, guidance_scale),
+                           encoder_reuse_interval, deep_reuse, step_callback)
 
 
 @torch.inference_mode()
 def ddim_inversion_batch_core(unet, ddim: DDIM, x0_latents: torch.Tensor,
                               cond: UNetConditioning, timesteps,
-                              num_inference_steps: int) -> torch.Tensor:
+                              num_inference_steps: int, encoder_reuse_interval: int = 1,
+                              deep_reuse: bool = False, step_callback=None) -> torch.Tensor:
     """DDIM inversion of J independent videos in one step loop: x0_latents
     [J, F, h, w, C] ride the UNet batch axis with one conditioning row per
     video (cond's leading axis J), at cfg 1 (the inversion template's), so
-    each video is one branch.  Returns [S, J, F, h, w, C].  The JAX
-    package's encoder-reuse keywords are not ported (ROADMAP.md §1 item 4)."""
-    latents = x0_latents
-    traj = []
-    for t in np.asarray(timesteps):
-        eps = unet(latents, int(t), **cond.unet_kwargs())
-        latents = ddim.inverse_step(eps, int(t), latents, num_inference_steps)
-        traj.append(latents)
-    return torch.stack(traj)
+    each video is one branch.  The reuse keywords as in
+    ddim_inversion_core, the cache over all J videos.  Returns [S, J, F, h,
+    w, C]."""
+    return _inversion_loop(unet, ddim, x0_latents, cond, timesteps, num_inference_steps,
+                           _Branches(None), encoder_reuse_interval, deep_reuse, step_callback)
 
 
 @torch.inference_mode()
@@ -168,7 +234,9 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
                        num_inference_steps: int, guidance_scale: float,
                        random_noise_ratio: float = 0.0, obj_random_noise_fusion: bool = False,
                        inject_background: bool = True, two_pass=False,
-                       capture_weights=None, step_callback=None) -> torch.Tensor:
+                       capture_weights=None, encoder_reuse_interval: int = 1,
+                       pab_interval: int = 1, capture_reuse_interval: int = 1,
+                       capture_reuse_deep: bool = False, step_callback=None) -> torch.Tensor:
     """The MVOC composite sampler.  Branch layout [bg, obj_1..obj_N, uncond,
     cond]; source branches take their inverted latents at the current t.
 
@@ -181,7 +249,25 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
     pnp.build_capture_weights) are summed in place into S, then the pair
     consumes it: peak activation memory of one branch.  All three are the
     same function.  step_callback(i), when given, runs after each step
-    (timing hooks).  The loop is pnp_composite_batch_core's at one entry."""
+    (timing hooks).  The loop is pnp_composite_batch_core's at one entry.
+
+    The approximate modes, each with an interval k > 1 (1 = off, exact);
+    run step i is fresh iff i % k == 0 (fresh_steps), a fresh step computes
+    the cache and the next k - 1 steps reuse it:
+    - encoder_reuse_interval: the UNet's down and mid features, on all
+      three paths (two_pass=True: one cache for the N+1 source branches and
+      one for the edit pair; stream: one per source branch and the edit
+      pair's).  Bind encoder_reuse_depth into `unet` for the partial cache;
+    - pab_interval (fused path only): the up blocks' attention outputs
+      (PAB), the rest of each step fresh;
+    - capture_reuse_interval (two_pass=True and stream only): the
+      pre-composited source features S, so cached steps skip the N+1
+      source forwards while noise fusion, the edit pair, CFG and DDIM stay
+      fresh;
+    - capture_reuse_deep (stream, with capture_reuse_interval): the edit
+      pair's encoder and attention outputs too, so a cached step runs only
+      the edit pair's up-block convs and FFs, CFG and DDIM.
+    Other combinations raise ValueError, as the JAX package asserts."""
     def one(pyr):
         return {res: m[None] for res, m in pyr.items()}
 
@@ -192,7 +278,9 @@ def pnp_composite_core(unet, ddim: DDIM, init_latents: torch.Tensor, cond: UNetC
     return _composite_loop(
         unet, ddim, init_latents[None], cond, entry, masks_soft[None], one(masks_binary_pyramid),
         one(masks_soft_pyramid), num_inference_steps, guidance_scale, random_noise_ratio,
-        obj_random_noise_fusion, inject_background, two_pass, weights, step_callback)[0]
+        obj_random_noise_fusion, inject_background, two_pass, weights,
+        encoder_reuse_interval, pab_interval, capture_reuse_interval, capture_reuse_deep,
+        step_callback)[0]
 
 
 SHARED_SCHEDULE = ("timesteps", "gate_spatial", "gate_temporal", "gate_conv", "fusion_mask")
@@ -232,22 +320,49 @@ def pnp_composite_batch_core(unet, ddim: DDIM, init_latents: torch.Tensor,
                            capture_weights=capture_weights, **kwargs)
 
 
+def check_composite_modes(two_pass, encoder_reuse_interval: int = 1, pab_interval: int = 1,
+                          capture_reuse_interval: int = 1,
+                          capture_reuse_deep: bool = False) -> None:
+    """The combinations of the composite's approximate modes that the JAX
+    package asserts against, refused with a ValueError naming the rule."""
+    if two_pass not in (False, True, "stream"):
+        raise ValueError(f"two_pass={two_pass!r}: False (fused), True or 'stream'")
+    reuse, pab = encoder_reuse_interval > 1, pab_interval > 1
+    cap_reuse = capture_reuse_interval > 1
+    if pab and (two_pass or reuse):
+        raise ValueError("pab_interval composes with the fused path only (two_pass=False, "
+                         "encoder_reuse_interval=1)")
+    if cap_reuse and (not two_pass or reuse or pab):
+        raise ValueError("capture_reuse_interval composes with two_pass/stream only (and "
+                         "neither encoder_reuse_interval nor pab_interval)")
+    if capture_reuse_deep and not (cap_reuse and two_pass == "stream"):
+        raise ValueError("capture_reuse_deep extends capture reuse on the stream path "
+                         "(two_pass='stream', capture_reuse_interval > 1)")
+
+
 def _composite_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetConditioning,
                     sched: CompositeSchedule, masks_soft: torch.Tensor, pyr_bin, pyr_soft,
                     num_inference_steps: int, guidance_scale: float,
                     random_noise_ratio: float = 0.0, obj_random_noise_fusion: bool = False,
                     inject_background: bool = True, two_pass=False, capture_weights=None,
+                    encoder_reuse_interval: int = 1, pab_interval: int = 1,
+                    capture_reuse_interval: int = 1, capture_reuse_deep: bool = False,
                     step_callback=None) -> torch.Tensor:
     """The composite step loop over J entries: latents [J, F, h, w, C]; cond
     the entry-major batch of J*(N+3) branches; sched's trajectories with a
     leading J and its timesteps, gates and fusion mask shared ([S']);
     masks_soft [J, N, F, h, w]; pyramids and capture weights with a leading
-    J."""
-    if two_pass not in (False, True, "stream"):
-        raise ValueError(f"two_pass={two_pass!r}: False (fused), True or 'stream'")
+    J.  The reuse modes as in pnp_composite_core, every cache over the J
+    entries' batch."""
+    check_composite_modes(two_pass, encoder_reuse_interval, pab_interval,
+                          capture_reuse_interval, capture_reuse_deep)
     stream = two_pass == "stream"
     if stream and capture_weights is None:
         raise ValueError("stream capture needs capture_weights")
+    reuse, pab = encoder_reuse_interval > 1, pab_interval > 1
+    cap_reuse = capture_reuse_interval > 1
+    k = (encoder_reuse_interval if reuse else pab_interval if pab
+         else capture_reuse_interval if cap_reuse else 1)
     n_entries, n_obj = masks_soft.shape[:2]
     nb = n_obj + 3
     mask_b = masks_soft[..., None]
@@ -255,8 +370,17 @@ def _composite_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetCondition
         src_cond = cond.branches(0, n_obj + 1, nb)
         edit_cond = cond.branches(n_obj + 1, nb, nb)
         branch_cond = [cond.branches(b, b + 1, nb) for b in range(n_obj + 1)] if stream else None
-    for i, t in enumerate(np.asarray(sched.timesteps)):
+    ts = np.asarray(sched.timesteps)
+    schedule = fresh_steps(len(ts), k)
+    cache = None
+    for i, t in enumerate(ts):
         t = int(t)
+        # the step's static mode (JAX's): plain, or fresh / cached under
+        # encoder reuse and PAB, cap_fresh / cap_cached under capture reuse
+        mode = "plain" if k <= 1 else ("cap_" if cap_reuse else "") + (
+            "fresh" if schedule[i] else "cached")
+        if schedule[i]:
+            cache = None  # the last block's cache dies before this step makes a new one
         bg_lat, obj_lat = sched.bg_traj[:, i], sched.obj_traj[:, i]
         if bool(sched.fusion_mask[i]):  # noise fusion, each entry with its own masks
             latents = random_noise_ratio * latents + (1.0 - random_noise_ratio) * bg_lat
@@ -277,26 +401,67 @@ def _composite_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetCondition
 
         if two_pass:
             src = torch.cat([bg_lat[:, None], obj_lat], dim=1)  # [J, N+1, F, h, w, C]
-            if stream:
+            src_caches = None
+            if mode == "cap_cached":  # broadcast the cached source features
+                feats = cache[0] if capture_reuse_deep else cache
+            elif stream:
                 feats = None
+                src_caches = [] if mode == "fresh" else None
                 for b in range(n_obj + 1):
                     wgt = {kind: {res: w[:, b] for res, w in pyr.items()}
                            for kind, pyr in capture_weights.items()}
-                    _, f_b = unet(src[:, b], t, **branch_cond[b].unet_kwargs(),
-                                  pnp=dataclasses.replace(state, capture_weight=wgt),
-                                  pnp_capture=True)
+                    kw = dict(branch_cond[b].unet_kwargs(), pnp_capture=True,
+                              pnp=dataclasses.replace(state, capture_weight=wgt))
+                    if mode == "fresh":
+                        _, f_b, enc = unet(src[:, b], t, **kw, return_encoder=True)
+                        src_caches.append(enc)
+                    elif mode == "cached":
+                        _, f_b = unet(src[:, b], t, **kw, cached_encoder=cache[0][b])
+                    else:
+                        _, f_b = unet(src[:, b], t, **kw)
                     feats = _accumulate(feats, f_b)
             else:
-                _, feats = unet(src.flatten(0, 1), t, **src_cond.unet_kwargs(), pnp=state,
-                                pnp_capture=True)
+                kw = dict(src_cond.unet_kwargs(), pnp=state, pnp_capture=True)
+                if mode == "fresh":
+                    _, feats, src_caches = unet(src.flatten(0, 1), t, **kw, return_encoder=True)
+                elif mode == "cached":
+                    _, feats = unet(src.flatten(0, 1), t, **kw, cached_encoder=cache[0])
+                else:
+                    _, feats = unet(src.flatten(0, 1), t, **kw)
             consume = dataclasses.replace(state, mode="consume_pre", features=feats)
-            eps = unet(torch.stack([latents, latents], dim=1).flatten(0, 1), t,
-                       **edit_cond.unet_kwargs(), pnp=consume).unflatten(0, (n_entries, 2))
+            edit = torch.stack([latents, latents], dim=1).flatten(0, 1)
+            kw = dict(edit_cond.unet_kwargs(), pnp=consume)
+            if mode == "fresh":
+                eps, edit_cache = unet(edit, t, **kw, return_encoder=True)
+                cache = (src_caches, edit_cache)
+            elif mode == "cached":
+                eps = unet(edit, t, **kw, cached_encoder=cache[1])
+            elif mode == "cap_fresh" and capture_reuse_deep:
+                eps, edit_enc, attn = unet(edit, t, **kw, return_encoder=True, pab_capture=True)
+                cache = (feats, edit_enc, attn)
+            elif mode == "cap_cached" and capture_reuse_deep:
+                eps = unet(edit, t, **kw, cached_encoder=cache[1], pab_cache=cache[2])
+            else:
+                eps = unet(edit, t, **kw)
+                if mode == "cap_fresh":
+                    cache = feats
+            eps = eps.unflatten(0, (n_entries, 2))
             eps_neg, eps_pos = eps[:, 0], eps[:, 1]
         else:
             inp = torch.cat([bg_lat[:, None], obj_lat, latents[:, None], latents[:, None]],
                             dim=1).flatten(0, 1)
-            eps = unet(inp, t, **cond.unet_kwargs(), pnp=state).unflatten(0, (n_entries, nb))
+            kw = dict(cond.unet_kwargs(), pnp=state)
+            if mode == "fresh" and reuse:
+                eps, cache = unet(inp, t, **kw, return_encoder=True)
+            elif mode == "cached" and reuse:
+                eps = unet(inp, t, **kw, cached_encoder=cache)
+            elif mode == "fresh":  # PAB
+                eps, cache = unet(inp, t, **kw, pab_capture=True)
+            elif mode == "cached":
+                eps = unet(inp, t, **kw, pab_cache=cache)
+            else:
+                eps = unet(inp, t, **kw)
+            eps = eps.unflatten(0, (n_entries, nb))
             eps_neg, eps_pos = eps[:, n_obj + 1], eps[:, n_obj + 2]
         eps_g = eps_neg + guidance_scale * (eps_pos - eps_neg)
         latents = ddim.step(eps_g, t, latents, num_inference_steps)

@@ -4,9 +4,11 @@ far: from_pretrained, invert and invert_batch, sample (the reconstruction
 path), generate_background, sample_composite and sample_composite_batch,
 the int8 mode (enable_int8) and the tiled VAE decode (enable_vae_tiling)).
 
-The JAX package's extension keywords are accepted at their exact defaults
-(what its composite CLI always passes); any other value of a mode that is
-not ported yet raises NotImplementedError naming its ROADMAP.md item.
+Every extension keyword of the JAX package runs here at every value it
+accepts: the reuse and broadcast modes (encoder_reuse_interval and
+encoder_reuse_depth, deep_reuse, pab_interval, capture_reuse_interval and
+capture_reuse_deep; approximate, each 1 / None / False = exact) and FreeU
+(enable_freeu / disable_freeu, on every path).
 
 The modules hold their own weights.  Every random draw of an entry point
 comes from one explicit `torch.Generator` seeded from `seed`, on the
@@ -17,6 +19,7 @@ passed; it raises when CUDA is asked for and absent.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Optional, Sequence
 
@@ -28,7 +31,7 @@ from mvoc_tpu_torch import pnp as pnp_lib
 from mvoc_tpu_torch.io import media
 from mvoc_tpu_torch.io.trajectory import TrajectoryStore
 from mvoc_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModelWithProjection, normalize_clip_image
-from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+from mvoc_tpu_torch.models.unet_i2vgen import FreeUConfig, I2VGenXLUNet
 from mvoc_tpu_torch.models.vae import AutoencoderKL, sample_latents, tiled_decode
 from mvoc_tpu_torch.ops import quantize
 from mvoc_tpu_torch.ops.ddim import DDIM, SchedulerConfig, inversion_timesteps, sampling_timesteps
@@ -36,24 +39,6 @@ from mvoc_tpu_torch.pipeline import core
 from mvoc_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-# the JAX package's extension keywords whose modes are not ported yet:
-# name -> (the exact default, ROADMAP.md §1 item)
-UNPORTED_KEYWORDS = {
-    "encoder_reuse_interval": (1, 4), "encoder_reuse_depth": (None, 4), "deep_reuse": (False, 4),
-    "pab_interval": (1, 4), "capture_reuse_interval": (1, 4), "capture_reuse_deep": (False, 4),
-}
-
-
-def refuse_unported(**values) -> None:
-    """Raise NotImplementedError for an extension keyword away from its
-    default (UNPORTED_KEYWORDS)."""
-    for name, value in values.items():
-        default, item = UNPORTED_KEYWORDS[name]
-        if value != default:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP.md §1 item "
-                                      f"{item}); mvoc_tpu_torch runs only {name}={default!r}")
-
 
 def _composite_core_kwargs(kwargs: dict, random_noise_ratio: float,
                            obj_random_noise_fusion: bool, step_callback) -> dict:
@@ -63,7 +48,12 @@ def _composite_core_kwargs(kwargs: dict, random_noise_ratio: float,
                 random_noise_ratio=float(random_noise_ratio),
                 obj_random_noise_fusion=obj_random_noise_fusion,
                 inject_background=kwargs.get("inject_background", True),
-                two_pass=kwargs.get("two_pass", False), step_callback=step_callback)
+                two_pass=kwargs.get("two_pass", False),
+                encoder_reuse_interval=int(kwargs.get("encoder_reuse_interval", 1)),
+                pab_interval=int(kwargs.get("pab_interval", 1)),
+                capture_reuse_interval=int(kwargs.get("capture_reuse_interval", 1)),
+                capture_reuse_deep=bool(kwargs.get("capture_reuse_deep", False)),
+                step_callback=step_callback)
 
 
 class I2VGenXLPipeline:
@@ -87,6 +77,7 @@ class I2VGenXLPipeline:
         self.vae_scaling = vae.config.scaling_factor
         self.clip_image_size = image_encoder.config.image_size
         self.vae_tiling: Optional[tuple[int, int]] = None  # set by enable_vae_tiling
+        self.freeu: Optional[FreeUConfig] = None  # set by enable_freeu
 
     @staticmethod
     def from_pretrained(checkpoint_dir: str, dtype: torch.dtype = torch.bfloat16,
@@ -119,6 +110,25 @@ class I2VGenXLPipeline:
         n = len(quantize.quantize_unet_(self.unet, pred))
         logger.info("UNet quantized to int8 (w8a8, %s selection): %d layers", mode, n)
         return self
+
+    def enable_freeu(self, s1: float, s2: float, b1: float, b2: float) -> None:
+        """FreeU up-block re-weighting on every UNet call of every entry point
+        (the reference's passthrough, pipeline_i2vgen_xl.py:950-976)."""
+        self.freeu = FreeUConfig(s1=s1, s2=s2, b1=b1, b2=b2)
+
+    def disable_freeu(self) -> None:
+        self.freeu = None
+
+    def _unet_apply(self, encoder_reuse_depth: Optional[int] = None):
+        """The UNet as the step loops call it: FreeU bound when enabled, and
+        the partial-depth encoder reuse when a depth is given (it acts only on
+        the cache paths)."""
+        kw = {}
+        if self.freeu is not None:
+            kw["freeu"] = self.freeu
+        if encoder_reuse_depth:
+            kw["encoder_reuse_depth"] = int(encoder_reuse_depth)
+        return functools.partial(self.unet, **kw) if kw else self.unet
 
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -267,21 +277,28 @@ class I2VGenXLPipeline:
                target_fps: int = 8, num_frames: int = 16, num_inference_steps: int = 500,
                guidance_scale: float = 1.0, clip_skip: int = 1, seed: int = 8888,
                output_dir: Optional[str] = None, prompt_embeds=None,
-               negative_prompt_embeds=None, encoder_reuse_interval: int = 1,
-               encoder_reuse_depth: Optional[int] = None,
-               deep_reuse: bool = False) -> tuple[np.ndarray, np.ndarray]:
+               negative_prompt_embeds=None, latents=None, encoder_reuse_interval: int = 1,
+               encoder_reuse_depth: Optional[int] = None, deep_reuse: bool = False,
+               step_callback=None) -> tuple[np.ndarray, np.ndarray]:
         """DDIM-invert a video.  Returns (timesteps ascending, trajectory
         [S, F, h, w, C]) and writes the trajectory store when output_dir.
-        The encoder-reuse keywords run only at their exact defaults."""
-        refuse_unported(encoder_reuse_interval=encoder_reuse_interval,
-                        encoder_reuse_depth=encoder_reuse_depth, deep_reuse=deep_reuse)
+        `latents` ([F, h, w, C] scaled) skip the VAE encode (its draws are
+        still taken, so the first frame's latents stay those of the same
+        seed).  encoder_reuse_interval > 1 runs encoder reuse;
+        encoder_reuse_depth = k caches only down blocks k.. and the mid
+        block; deep_reuse also broadcasts the up blocks' attention outputs
+        (PAB) on cached steps.  step_callback(i) runs after each step."""
         self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
                           negative_prompt=negative_prompt,
                           negative_prompt_embeds=negative_prompt_embeds)
         gen = self._generator(seed)
         first_frame = first_frame or frames[0]
         do_cfg = guidance_scale > 1.0
-        latents = self.encode_vae_video(frames, height, width, generator=gen)
+        if latents is None:
+            latents = self.encode_vae_video(frames, height, width, generator=gen)
+        else:  # the encode's draw, so that the first frame's draw is the same
+            latents = torch.as_tensor(latents, device=self.device)
+            torch.randn(latents.shape, generator=gen, device=self.device, dtype=torch.float32)
         pe, ne = self.encode_prompt(prompt, negative_prompt, do_cfg=do_cfg, clip_skip=clip_skip,
                                     prompt_embeds=prompt_embeds,
                                     negative_prompt_embeds=negative_prompt_embeds)
@@ -295,8 +312,11 @@ class I2VGenXLPipeline:
         img_lat = img_lat[None].expand((2 if do_cfg else 1,) + tuple(img_lat.shape))
         cond = self._stack_cond(text, img_lat, img_lat, img_emb, target_fps)
         ts = inversion_timesteps(self.scheduler_config, num_inference_steps)
-        traj = core.ddim_inversion_core(self.unet, self.ddim, latents.float(),
-                                        cond, ts, num_inference_steps, float(guidance_scale))
+        traj = core.ddim_inversion_core(
+            self._unet_apply(encoder_reuse_depth if encoder_reuse_interval > 1 else None),
+            self.ddim, latents.float(), cond, ts, num_inference_steps, float(guidance_scale),
+            encoder_reuse_interval=int(encoder_reuse_interval), deep_reuse=bool(deep_reuse),
+            step_callback=step_callback)
         trajectory = traj.float().cpu().numpy()
         if output_dir is not None:
             meta = dict(n_steps=num_inference_steps, guidance_scale=guidance_scale,
@@ -312,8 +332,8 @@ class I2VGenXLPipeline:
                      prompt: str = "", height: int = 720, width: int = 1280, target_fps: int = 8,
                      num_frames: int = 16, num_inference_steps: int = 500, clip_skip: int = 1,
                      seed: int = 8888, output_dirs: Optional[Sequence[Optional[str]]] = None,
-                     encoder_reuse_interval: int = 1,
-                     deep_reuse: bool = False) -> tuple[np.ndarray, np.ndarray]:
+                     encoder_reuse_interval: int = 1, deep_reuse: bool = False,
+                     step_callback=None) -> tuple[np.ndarray, np.ndarray]:
         """DDIM-invert J independent videos in one step loop, the videos on
         the UNet batch axis (ddim_inversion_batch_core), at cfg 1 (the
         inversion template's), so each video is one branch.  Returns
@@ -324,9 +344,9 @@ class I2VGenXLPipeline:
         its own generator seeded from `seed`, so every video gets the draws
         invert(videos[j], seed=seed) takes and a batch inverts what the
         sequential calls invert.  (The JAX package splits one key into 2J
-        keys, which torch cannot reproduce.)  The encoder-reuse keywords run
-        only at their exact defaults."""
-        refuse_unported(encoder_reuse_interval=encoder_reuse_interval, deep_reuse=deep_reuse)
+        keys, which torch cannot reproduce.)  encoder_reuse_interval and
+        deep_reuse as in invert, one cache over the J videos (the JAX
+        package's invert_batch has no encoder_reuse_depth)."""
         self.check_inputs(height, width, num_frames)
         first_frames = list(first_frames or [None] * len(videos))
         x0s, img_embs, img_lats = [], [], []
@@ -342,8 +362,10 @@ class I2VGenXLPipeline:
         cond = self._stack_cond(pe.expand((len(videos),) + tuple(pe.shape[1:])), img_lat,
                                 img_lat, torch.stack(img_embs), target_fps)
         ts = inversion_timesteps(self.scheduler_config, num_inference_steps)
-        traj = core.ddim_inversion_batch_core(self.unet, self.ddim, torch.stack(x0s).float(),
-                                              cond, ts, num_inference_steps)
+        traj = core.ddim_inversion_batch_core(
+            self._unet_apply(), self.ddim, torch.stack(x0s).float(), cond, ts,
+            num_inference_steps, encoder_reuse_interval=int(encoder_reuse_interval),
+            deep_reuse=bool(deep_reuse), step_callback=step_callback)
         trajectory = traj.float().cpu().numpy()
         for j, out_dir in enumerate(output_dirs or []):
             if out_dir is None:
@@ -390,7 +412,7 @@ class I2VGenXLPipeline:
         cond = self._stack_cond(text, img_lat, img_lat, img_emb, target_fps)
         run_ts = sampling_timesteps(self.scheduler_config,
                                     num_inference_steps)[ddim_init_latents_t_idx:]
-        final = core.ddim_sampling_core(self.unet, self.ddim, latents, cond, run_ts,
+        final = core.ddim_sampling_core(self._unet_apply(), self.ddim, latents, cond, run_ts,
                                         num_inference_steps, float(guidance_scale))
         if not decode:
             return final
@@ -449,11 +471,7 @@ class I2VGenXLPipeline:
         capture_reuse_deep: bool = False):
         """Host-side preparation of sample_composite.  Returns (init_latents,
         cond, sched, masks_soft, pyr_bin, pyr_soft, capture_weights).  The
-        reuse and broadcast keywords run only at their exact defaults."""
-        refuse_unported(encoder_reuse_interval=encoder_reuse_interval,
-                        encoder_reuse_depth=encoder_reuse_depth, pab_interval=pab_interval,
-                        capture_reuse_interval=capture_reuse_interval,
-                        capture_reuse_deep=capture_reuse_deep)
+        reuse and broadcast keywords act in the step loop (sample_composite)."""
         self.check_inputs(height, width, num_frames, prompt=prompt, prompt_embeds=prompt_embeds,
                           negative_prompt=negative_prompt,
                           negative_prompt_embeds=negative_prompt_embeds)
@@ -527,16 +545,25 @@ class I2VGenXLPipeline:
                          step_callback=None, **kwargs):
         """The MVOC composite sampler.  Same argument surface as
         _prepare_composite; two_pass is False (fused), True (batched
-        capture, then consume) or "stream" (capture one branch at a time)."""
+        capture, then consume) or "stream" (capture one branch at a time).
+        The reuse and broadcast modes as in core.pnp_composite_core, with
+        encoder_reuse_depth bound into the UNet when encoder reuse is on."""
+        static = _composite_core_kwargs(kwargs, random_noise_ratio, obj_random_noise_fusion,
+                                        step_callback)
         (init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
          capture_weights) = self._prepare_composite(*args, **kwargs)
         final = core.pnp_composite_core(
-            self.unet, self.ddim, init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
-            capture_weights=capture_weights, **_composite_core_kwargs(
-                kwargs, random_noise_ratio, obj_random_noise_fusion, step_callback))
+            self._composite_unet(static, kwargs), self.ddim, init_latents, cond, sched,
+            masks_soft, pyr_bin, pyr_soft, capture_weights=capture_weights, **static)
         if not decode:
             return final
         return self.decode_latents(final, decode_chunk_size=decode_chunk_size)
+
+    def _composite_unet(self, static: dict, kwargs: dict):
+        """The UNet of a composite loop: encoder_reuse_depth bound only when
+        encoder reuse is on (the JAX package's _reuse_unet_apply)."""
+        return self._unet_apply(kwargs.get("encoder_reuse_depth")
+                                if static["encoder_reuse_interval"] > 1 else None)
 
     def _prepare_composite_batch(self, entries: Sequence[dict], **shared_kwargs):
         """_prepare_composite of every entry (its own kwargs and the shared
@@ -579,12 +606,13 @@ class I2VGenXLPipeline:
         seeded from its seed, as sample_composite does.  Returns one decoded
         video [F, H, W, 3] per entry, or the final latents [J, F, h, w, C]
         if not decode."""
+        static = _composite_core_kwargs(shared_kwargs, random_noise_ratio,
+                                        obj_random_noise_fusion, step_callback)
         (init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
          capture_weights) = self._prepare_composite_batch(entries, **shared_kwargs)
         final = core.pnp_composite_batch_core(
-            self.unet, self.ddim, init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
-            capture_weights=capture_weights, **_composite_core_kwargs(
-                shared_kwargs, random_noise_ratio, obj_random_noise_fusion, step_callback))
+            self._composite_unet(static, shared_kwargs), self.ddim, init_latents, cond, sched,
+            masks_soft, pyr_bin, pyr_soft, capture_weights=capture_weights, **static)
         if not decode:
             return final
         return [self.decode_latents(f, decode_chunk_size=decode_chunk_size) for f in final]

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -43,8 +44,11 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class DummyTokenizer:
-    """Hash-based stand-in for CLIPTokenizer with the same call contract
-    (ids are stable within one process only: Python's hash is salted)."""
+    """Hash-based stand-in for CLIPTokenizer with the same call contract.
+    The ids come from CRC-32 of each word, so they are the same in every
+    process (Python's own hash is salted per process, which made the
+    seeded pipelines' prompt embeddings, and every composite, differ from
+    one run to the next)."""
 
     def __init__(self, vocab_size: int, model_max_length: int):
         self.vocab_size = vocab_size
@@ -55,7 +59,7 @@ class DummyTokenizer:
         max_length = max_length or self.model_max_length
         ids = np.ones((len(texts), max_length), dtype=np.int32)  # pad = 1
         for i, t in enumerate(texts):
-            toks = [0] + [hash(w) % (self.vocab_size - 2) + 2 for w in t.split()]
+            toks = [0] + [zlib.crc32(w.encode()) % (self.vocab_size - 2) + 2 for w in t.split()]
             toks = toks[: max_length - 1] + [1]
             ids[i, : len(toks)] = toks
         return {"input_ids": ids}

@@ -21,6 +21,18 @@ limit, so this script runs the JAX package once and stores, as numpy:
     stores, and both results; and the batched composite over J = 2
     entries (pnp_composite_batch_core: that entry, and a second one with
     another prompt, seed and masks) fused, two_pass=True and stream;
+  * the reuse and broadcast modes on those inputs, each at k = 2: the
+    inversion with encoder reuse, with deep reuse, with reuse depth 1, and
+    batched (J = 2, deep); the composite with encoder reuse on all three
+    paths, with depth 1 (fused), PAB (fused), capture reuse (two_pass=True
+    and stream), deep capture reuse (stream), and the batched stream
+    composite with deep capture reuse (REUSE_COMPOSITES);
+  * UNet forwards with FreeU (at a 16 x 16 latent) and with
+    multi_frame_guidance;
+  * the drift harness of mvoc_tpu/utils/quality.py (`_TinyHarness(seed=0)`):
+    its parameters and inputs, its exact stream composite and inversion,
+    and its approx_quality_report over tests/test_approx_quality.py's modes,
+    PAB and the float inversion modes, plus one stale capture;
   * 3 steps of plain DDIM sampling (ddim_sampling_core: cfg 3.0, no cfg,
     and eta 0.5 with the noise passed in);
   * at a 5 x 9 latent (halvings 3 x 5, 2 x 3, 1 x 2, the 720p geometry in
@@ -66,6 +78,23 @@ F, HW, LAT, D = 2, 16, 8, 16
 N_OBJ = 2
 N_STEPS = 4  # 4-step schedule, t_idx 1 -> 3 composite steps
 ODD_LAT = (5, 9)  # a non-square latent whose halvings go odd, like 90 x 160 at 720p
+# the composite's reuse and broadcast modes: (name, "depth1" or the plain
+# apply, two_pass, the core's keywords), all at k = 2 over the 3 run steps
+REUSE_COMPOSITES = (
+    ("fused_k2", None, False, dict(encoder_reuse_interval=2)),
+    ("two_pass_k2", None, True, dict(encoder_reuse_interval=2)),
+    ("stream_k2", None, "stream", dict(encoder_reuse_interval=2)),
+    ("fused_k2_depth1", "depth1", False, dict(encoder_reuse_interval=2)),
+    ("fused_pab_k2", None, False, dict(pab_interval=2)),
+    ("two_pass_capture_k2", None, True, dict(capture_reuse_interval=2)),
+    ("stream_capture_k2", None, "stream", dict(capture_reuse_interval=2)),
+    ("stream_capture_deep_k2", None, "stream",
+     dict(capture_reuse_interval=2, capture_reuse_deep=True)),
+)
+EXTRAS_FREEU = dict(s1=0.9, s2=0.2, b1=1.1, b2=1.2)
+# the drift harness's composite modes in the goldens: tests/test_approx_quality.py's
+# CI modes and PAB
+QUALITY_COMPOSITE = ("encoder_reuse_k2", "capture_reuse_k2", "capture_reuse_k2_deep", "pab_k2")
 
 
 def unet_inputs(b, seed):
@@ -357,6 +386,79 @@ def main() -> int:
             two_pass=two_pass))
         print(f"batched composite {name}: done", flush=True)
     print("composite: done", flush=True)
+
+    # the reuse and broadcast modes, on the same inputs as the exact runs above
+    depth1 = lambda p, **kw: unet.apply(p, **kw, encoder_reuse_depth=1)  # noqa: E731
+    for name, apply, kw in (("k2", pipe._unet_apply, dict(encoder_reuse_interval=2)),
+                            ("k2_deep", pipe._unet_apply,
+                             dict(encoder_reuse_interval=2, deep_reuse=True)),
+                            ("k2_depth1", depth1, dict(encoder_reuse_interval=2))):
+        out[f"reuse/invert/{name}"] = np.asarray(core.ddim_inversion_core(
+            apply, pipe.ddim, params, jnp.asarray(inv["x0"]), cond, jnp.asarray(ts), 50, **kw))
+    out["reuse/invert_batch/k2_deep"] = np.asarray(core.ddim_inversion_batch_core(
+        pipe._unet_apply, pipe.ddim, params, jnp.asarray(inv2["x0"]), cond2, jnp.asarray(ts), 50,
+        encoder_reuse_interval=2, deep_reuse=True))
+    print("reuse inversion: done", flush=True)
+    for name, apply, two_pass, kw in REUSE_COMPOSITES:
+        out[f"reuse/composite/{name}"] = np.asarray(core.pnp_composite_core(
+            depth1 if apply == "depth1" else pipe._unet_apply, pipe.ddim, params, init, ccond,
+            sched, ms, cpb, cps, num_inference_steps=N_STEPS, guidance_scale=3.0,
+            random_noise_ratio=0.3, two_pass=two_pass,
+            capture_weights=ccw if two_pass == "stream" else None, **kw))
+        print(f"reuse composite {name}: done", flush=True)
+    out["reuse/composite_batch/stream_capture_deep_k2"] = np.asarray(
+        core.pnp_composite_batch_core(
+            pipe._unet_apply, pipe.ddim, params, b_init, b_cond, b_sched, b_ms, b_pb, b_ps,
+            capture_weights=b_cw, num_inference_steps=N_STEPS, guidance_scale=3.0,
+            random_noise_ratio=0.3, two_pass="stream", capture_reuse_interval=2,
+            capture_reuse_deep=True))
+    print("reuse: done", flush=True)
+
+    # FreeU and multi_frame_guidance: UNet forwards (FreeU at a 16 x 16 latent,
+    # so that up blocks 0 and 1 filter 2 x 2 and 4 x 4 skips)
+    from mvoc_tpu.models.unet_i2vgen import FreeUConfig
+
+    r = np.random.default_rng(13)
+    big = dict(sample=r.standard_normal((2, F, 16, 16, 4)).astype(np.float32),
+               timestep=np.array([501, 501]), fps=np.array([8, 8]),
+               image_latents_first=r.standard_normal((2, F, 16, 16, 4)).astype(np.float32),
+               image_latents=r.standard_normal((2, F, 16, 16, 4)).astype(np.float32),
+               image_embeddings=r.standard_normal((2, F, D)).astype(np.float32),
+               encoder_hidden_states=r.standard_normal((2, 7, D)).astype(np.float32))
+    for k, v in big.items():
+        out[f"extras/unet16/{k}"] = v
+    freeu = FreeUConfig(**EXTRAS_FREEU)
+    out["extras/freeu_out"] = np.asarray(jax.jit(
+        lambda p, x: unet.apply(p, **x, freeu=freeu))(params, big))
+    out["extras/mfg_out"] = np.asarray(jax.jit(
+        lambda p, x: unet.apply(p, **x, multi_frame_guidance=True))(params, plain_in))
+    print("extras: done", flush=True)
+
+    # the drift harness of mvoc_tpu/utils/quality.py: its parameters and
+    # inputs, and its report over the modes tests/test_approx_quality.py pins
+    # plus PAB and the inversion modes (int8 left out: its comparisons need the
+    # activation tape), and one stale capture broadcast over every step
+    from mvoc_tpu.utils import quality as jquality
+
+    h = jquality._TinyHarness(seed=0)
+    flatten(h.params["params"], "quality/params", out)
+    for name in ("x0", "xT", "masks"):
+        out[f"quality/{name}"] = np.asarray(getattr(h, name))
+    for tag, c in (("cond1", h.cond1), ("condN", h.condN)):
+        for f in dataclasses.fields(core.UNetConditioning):
+            out[f"quality/{tag}/{f.name}"] = np.asarray(getattr(c, f.name))
+    comp_modes = tuple(m for m in jquality.COMPOSITE_MODES if m[0] in QUALITY_COMPOSITE)
+    inv_modes = tuple(m for m in jquality.INVERSION_MODES if "int8" not in m[0])
+    report = jquality.approx_quality_report(composite_modes=comp_modes,
+                                            inversion_modes=inv_modes, harness=h)
+    stale = h.run_composite(capture_reuse_interval=h.compose_steps * 2)
+    report["capture_reuse_stale"] = jquality.latent_metrics(stale, h.run_composite())
+    for mode, metrics in report.items():
+        for k, v in metrics.items():
+            out[f"quality/report/{mode}/{k}"] = np.asarray(v)
+    out["quality/exact_stream"] = h.run_composite()
+    out["quality/exact_inversion"] = h.run_inversion()
+    print(f"quality harness: {report}", flush=True)
 
     # plain DDIM sampling (the reconstruction path): 3 steps with cfg 3.0,
     # without cfg, and with eta > 0 and the noise passed in

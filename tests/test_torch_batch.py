@@ -213,7 +213,8 @@ def tiny_pipe():
 def test_invert_batch_equals_invert(tiny_pipe, tmp_path):
     """Each video draws what invert(video, seed) draws, so the batch inverts
     what the sequential calls invert; one store per video, with invert's
-    meta (cfg 1); the reuse keywords stay refused (item 4)."""
+    meta (cfg 1); with encoder reuse and deep reuse too, one cache over the
+    batch."""
     videos = [tt.tiny_frames(seed=s) for s in (3, 4)]
     kw = dict(height=HW, width=HW, num_frames=F, num_inference_steps=N_STEPS, seed=7)
     dirs = [str(tmp_path / f"v{j}") for j in range(J)]
@@ -229,16 +230,20 @@ def test_invert_batch_equals_invert(tiny_pipe, tmp_path):
         np.testing.assert_allclose(store.gather(store.timesteps), traj[:, j], rtol=2**-11,
                                    atol=2**-24)
         assert store.meta == TrajectoryStore(str(tmp_path / "s")).meta
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tiny_pipe.invert_batch(videos, encoder_reuse_interval=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tiny_pipe.invert_batch(videos, deep_reuse=True, **kw)
+    reuse = dict(kw, encoder_reuse_interval=2, deep_reuse=True)
+    _, traj = tiny_pipe.invert_batch(videos, **reuse)
+    for j, frames in enumerate(videos):
+        one = tiny_pipe.invert(frames, **reuse)[1]
+        assert _rel_err(traj[:, j], one) <= BATCH_REL
+        assert np.abs(one - tiny_pipe.invert(frames, **kw)[1]).max() > 0.0
 
 
 def test_sample_composite_batch_equals_sample_composite(tiny_pipe, tmp_path):
     """Two entries (other prompt, seed and masks) through the batch entry
     point, decoded, against sample_composite of each; latents without
-    decode; the reuse keywords refused, as in sample_composite."""
+    decode; and with deep capture reuse on the stream path (fusion on the
+    first step only, so the two cached steps reach the result), each entry
+    against its own sample_composite."""
     ts_inv = tiny_pipe.invert_batch([tt.tiny_frames(seed=s) for s in range(N_OBJ + 1)],
                                     height=HW, width=HW, num_frames=F,
                                     num_inference_steps=N_STEPS,
@@ -264,8 +269,15 @@ def test_sample_composite_batch_equals_sample_composite(tiny_pipe, tmp_path):
         want = tiny_pipe.sample_composite(**entry, **shared)
         assert videos[e].shape == (F, HW, HW, 3)
         np.testing.assert_allclose(videos[e], want, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tiny_pipe.sample_composite_batch(entries, **shared, pab_interval=2)
+    reuse = dict(shared, fusion_steps=(0, 1), capture_reuse_interval=3, capture_reuse_deep=True,
+                 decode=False)
+    batched = tiny_pipe.sample_composite_batch(entries, **reuse)
+    for e, entry in enumerate(entries):
+        one = tiny_pipe.sample_composite(**entry, **reuse)
+        assert _rel_err(batched[e].numpy(), one.numpy()) <= BATCH_REL
+        exact = tiny_pipe.sample_composite(**entry, **dict(reuse, capture_reuse_interval=1,
+                                                           capture_reuse_deep=False))
+        assert (one - exact).abs().max() > 0.0
 
 
 # -- device_op_breakdown ---------------------------------------------------------

@@ -8,7 +8,10 @@
   metrics).  JAX draws noise from jax.random, which torch cannot
   reproduce, so the CLIs are compared on what they hand the pipeline;
 * the port's CLIs end to end on the tiny CPU pipeline (`device: cpu`);
-* every refusal of a mode that is not ported names its ROADMAP.md item;
+* every refusal of a mode that is not ported names its ROADMAP.md item
+  (the reuse and broadcast modes and `encoder_reuse_interval: auto` now
+  run: on the tiny pipeline against its exact runs, and auto through both
+  CLIs on the recording stub);
   a missing checkpoint, an unknown quantize mode and a template without a
   CPU device on a machine without CUDA raise as the JAX CLI does (or, for
   the device, as the port's entry points do);
@@ -69,8 +72,15 @@ class RecordingPipeline:
         traj = rng.standard_normal((len(ts), kw["num_frames"], h, w, 4)).astype(np.float32)
         meta = {k: kw[k] for k in ("prompt", "seed", "height", "width")}
         meta.update(n_steps=kw["num_inference_steps"], num_frames=kw["num_frames"])
-        TrajectoryStore(kw["output_dir"], prefer_native=False).save(ts, traj, meta=meta)
+        if kw.get("output_dir") is not None:  # the auto-reuse probes keep theirs
+            TrajectoryStore(kw["output_dir"], prefer_native=False).save(ts, traj, meta=meta)
         return ts, traj
+
+    def encode_vae_video(self, frames, height, width, **kw):  # the auto-reuse probe's latents
+        return np.zeros((len(frames), height // 2, width // 2, 4), np.float32)
+
+    def _generator(self, seed):
+        return seed
 
     def _video(self, kw):
         n = kw["num_frames"] * kw["height"] * kw["width"] * 3
@@ -303,12 +313,26 @@ def tiny_pipe():
     return tt.build_tiny_pipeline(device="cpu")
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"encoder_reuse_interval": 2}, 4), ({"encoder_reuse_depth": 1}, 4),
-    ({"deep_reuse": True}, 4)])
-def test_invert_refuses_unported_modes(tiny_pipe, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        tiny_pipe.invert(tt.tiny_frames(), height=HW, width=HW, num_frames=F, **kw)
+@pytest.mark.parametrize("kw", [{"encoder_reuse_interval": 2}, {"encoder_reuse_depth": 1},
+                                {"deep_reuse": True}])
+def test_invert_runs_reuse_modes(tiny_pipe, kw):
+    """Each inversion keyword of the JAX package runs: encoder_reuse_depth and
+    deep_reuse alone leave the exact inversion bitwise (they act only with an
+    interval > 1, as in JAX), and each moves the k = 2 run; k = 2 itself
+    leaves the exact trajectory, finite, without running away from it."""
+    common = dict(height=HW, width=HW, num_frames=F, num_inference_steps=STEPS)
+    frames = tt.tiny_frames()
+    exact = tiny_pipe.invert(frames, **common)[1]
+    reuse = tiny_pipe.invert(frames, encoder_reuse_interval=2, **common)[1]
+    got = tiny_pipe.invert(frames, **common, **kw)[1]
+    assert np.isfinite(got).all()
+    if "encoder_reuse_interval" in kw:
+        rel = np.linalg.norm(got - exact) / np.linalg.norm(exact)
+        assert 0.0 < rel < 0.5, rel
+        return
+    np.testing.assert_array_equal(got, exact)
+    moved = tiny_pipe.invert(frames, encoder_reuse_interval=2, **common, **kw)[1]
+    assert np.isfinite(moved).all() and np.abs(moved - reuse).max() > 0.0
 
 
 def _composite_inputs(root):
@@ -330,24 +354,48 @@ def _composite_inputs(root):
             [tt.tiny_frames(seed=1), tt.tiny_frames(seed=2)], masks, masks, stores[0], stores[1:])
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"encoder_reuse_interval": 3}, 4), ({"encoder_reuse_depth": 2}, 4),
-    ({"pab_interval": 2}, 4), ({"capture_reuse_interval": 2}, 4),
-    ({"capture_reuse_deep": True}, 4), ({"two_pass": True}, None)])
-def test_sample_composite_refuses_unported_modes(tiny_pipe, tmp_path, kw, item):
-    """The reuse and broadcast modes stay refused; two_pass=True (item 3) is
-    ported and runs the fused path's function."""
-    if item is None:
-        args = _composite_inputs(str(tmp_path))
-        common = dict(height=HW, width=HW, num_frames=F, num_inference_steps=STEPS,
-                      guidance_scale=3.0, decode=False)
-        got = tiny_pipe.sample_composite(*args, **common, **kw)
+@pytest.mark.parametrize("kw", [
+    {"encoder_reuse_interval": 3}, {"encoder_reuse_depth": 2}, {"pab_interval": 2},
+    {"capture_reuse_interval": 2, "two_pass": True}, {"capture_reuse_deep": True},
+    {"two_pass": True}])
+def test_sample_composite_runs_reuse_modes(tiny_pipe, tmp_path, kw):
+    """The reuse and broadcast modes run (fusion on the first step only, so
+    the cached steps reach the result): each interval > 1 moves the
+    composite off its path's exact run, finite; encoder_reuse_depth alone is
+    bitwise exact and moves the k = 2 run; capture_reuse_deep alone is
+    refused as JAX asserts, and deepens stream capture reuse;
+    two_pass=True runs the fused path's function."""
+    args = _composite_inputs(str(tmp_path))
+    common = dict(height=HW, width=HW, num_frames=F, num_inference_steps=STEPS,
+                  guidance_scale=3.0, fusion_steps=(0, 1), decode=False)
+    two_pass = kw.get("two_pass", False)
+    exact = tiny_pipe.sample_composite(*args, **dict(common, two_pass=two_pass))
+    if kw == {"two_pass": True}:
         fused = tiny_pipe.sample_composite(*args, **common, two_pass=False)
-        assert torch.isfinite(got).all()
-        assert (got - fused).abs().max() <= 1e-5 * fused.abs().max()
+        assert torch.isfinite(exact).all()
+        assert (exact - fused).abs().max() <= 1e-5 * fused.abs().max()
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        tiny_pipe.sample_composite("a cat", *([None] * 8), height=HW, width=HW, **kw)
+    if kw == {"capture_reuse_deep": True}:
+        with pytest.raises(ValueError, match="capture_reuse_deep extends capture reuse"):
+            tiny_pipe.sample_composite(*args, **common, two_pass="stream", **kw)
+        # conv injection off: it replaces the edit pair's features wholesale
+        # with the captured ones (inject_background), which would hide the
+        # edit pair's own (deep-reused) encoder
+        shallow, deep = (tiny_pipe.sample_composite(
+            *args, **common, two_pass="stream", capture_reuse_interval=2, capture_reuse_deep=d,
+            pnp_f_t=0.0) for d in (False, True))
+        assert torch.isfinite(deep).all() and (deep - shallow).abs().max() > 0.0
+        return
+    got = tiny_pipe.sample_composite(*args, **dict(common, **kw))
+    assert torch.isfinite(got).all()
+    if kw == {"encoder_reuse_depth": 2}:
+        assert torch.equal(got, exact)
+        k2 = tiny_pipe.sample_composite(*args, **common, encoder_reuse_interval=2)
+        k2_depth = tiny_pipe.sample_composite(*args, **common, encoder_reuse_interval=2, **kw)
+        assert (k2_depth - k2).abs().max() > 0.0
+        return
+    rel = ((got - exact).norm() / exact.norm()).item()
+    assert 0.0 < rel < 1.0, rel
 
 
 class TilingRecorder(RecordingPipeline):
@@ -460,13 +508,36 @@ def test_batch_refused(tmp_path, monkeypatch, kind, key):
         assert sum(p.endswith("video.gif") for p in recorded["port"][1]) == 3
 
 
-def test_auto_reuse_refused(demo):
-    template = tcfg.load(os.path.join(ROOT, "configs", "group_inversion", "template.yaml"))
-    entries = tcfg.load_json_list(demo[1]["inversion"])
-    entries[0]["inverse_config"]["encoder_reuse_interval"] = "auto"
-    entries[0]["force_recompute_latents"] = True
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tinverse.run(None, tinverse.configure(template, entries))
+def test_auto_reuse_runs_as_in_jax(tmp_path, monkeypatch):
+    """`encoder_reuse_interval: auto` (with deep_reuse and its knobs): both
+    inversion CLIs probe the entry's video with the same invert / sample
+    calls on the recording stub, resolve the same k (the largest candidate
+    whose probe clears the threshold), run the entry's inversion with it,
+    and write the same files; the cached entries skip the probe."""
+    import json
+
+    root = str(tmp_path / "tree")
+    paths = tt.write_demo_tree(root, HW, HW, F, STEPS)
+    with open(paths["inversion"]) as f:
+        entries = json.load(f)
+    entries[0]["inverse_config"].update(encoder_reuse_interval="auto", deep_reuse=True,
+                                        reuse_auto_candidates=[2, 3],
+                                        reuse_auto_threshold_db=-1000.0,
+                                        reuse_auto_probe_steps=3)
+    with open(paths["inversion"], "w") as f:
+        json.dump(entries, f)
+    recorded = {}
+    for name, run in (("jax", _run_jax), ("port", _run_port)):
+        _clear(root)
+        pipe = run(monkeypatch, (root, paths), kinds=("inversion",))
+        recorded[name] = (_recorded(pipe.calls), _files(root))
+    calls = recorded["port"][0]
+    assert [c[0] for c in calls] == ["invert", "sample", "invert", "sample", "invert", "invert"]
+    probe_invert, _, entry_invert = calls[:3]
+    assert probe_invert[2]["encoder_reuse_interval"] == 3
+    assert probe_invert[2]["num_inference_steps"] == 3
+    assert entry_invert[2]["encoder_reuse_interval"] == 3 and entry_invert[2]["deep_reuse"]
+    assert recorded["port"] == recorded["jax"]
 
 
 def _dtype_name(dtype) -> str:
