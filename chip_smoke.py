@@ -115,11 +115,42 @@ Phases, in order (each failure ends the run with a non-zero exit):
      auto report, per stage its wall time, launches and peak memory, the
      PAB dict's bytes, and the drift from the exact composite on the same
      stores;
+  9. the mesh (after 7c; its NCCL part on phase 7's pipeline before that
+     pipeline is freed): MESH_WORLD = 4 ranks spawned on the one card
+     (torch.multiprocessing) over a gloo process group, since NCCL refuses
+     two ranks on one device, so their collectives move CUDA tensors
+     through host memory and their times are those of ranks sharing one
+     card, not multi-GPU times.  Each rank builds phase 2's seeded bf16
+     pipeline and runs, on mesh (job 1, seq 2, model 2): the three
+     inversions, the stream and the fused composites and the decode of
+     phase 2 (each within TOL_MESH of max |x| of the same run in this
+     process), phase 4's fp32 UNet forward (within TOL_REF of the card's
+     single-process forward) and the same forward with a planted fault (the
+     all-reduce after every row-split projection dropped) beyond TOL_MESH
+     of it, a 32-frame
+     UNet forward with temporal_window 16 as ring context parallelism
+     (within TOL_MESH of the banded forward in one process), one
+     1280-channel Ulysses call (20 heads) over seq = 2 and 4 against
+     ring_sdpa unsharded; on mesh (job 2, seq 2, model 1) invert_batch of
+     the three videos and a J = 2 fused sample_composite_batch (the
+     second entry's masks exchanged), within TOL_BATCH of the single runs;
+     then enable_int8(mode="mixed") before enable_mesh and one fused
+     composite step, K3 on every rank's tensor-parallel shares.  Every
+     rank's results must equal rank 0's; per rank its wall time, K1 / K2 /
+     K3 launches (required > 0 where its path launches them), collective
+     calls and peak memory per stage, its local launch shapes (which join
+     phase 8).  Before the spawn, which collectives gloo takes on CUDA
+     tensors (all-reduce, all-gather and all-to-all must: the port hands
+     them CUDA tensors and stages only the ring's point-to-point through
+     host memory).  And one NCCL process group of world size 1 through
+     enable_mesh (the launcher's environment, the default backend on CUDA):
+     its 1x1x1 mesh's UNet forward bitwise the unmeshed one;
   8. kernel phases: K1 and K2 at every distinct shape the bf16 slice, the
-     reuse phases, the CLI phases and the tiled decode launched, plus a
-     ragged 14400-token K1 case and K1 with the temporal-window band as its
+     reuse phases, the CLI phases, the mesh and the tiled decode launched,
+     plus a ragged 14400-token K1 case and K1 with the temporal-window band as its
      bias (F = 96 in both frame layouts, F = 160), each against its plain
-     version computed in fp32 from the same bf16 inputs; K3 at every
+     version computed in fp32 from the same inputs (bf16 within TOL_BF16,
+     phase 9's fp32 launches within TOL_FP32 of max |plain|); K3 at every
      (M, K, N, dtype) phases 5 and 6 launched plus a ragged 17x36x9 case,
      bitwise against its plain version.  Each with its device time
      (kernel_ms: TIMED_REPS launches captured in one CUDA graph and
@@ -159,12 +190,16 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
+PEAK_FP32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # bf16 kernel vs fp32 plain on unit-variance inputs: |err| <= TOL_BF16 * max|plain|.
 # Tied to the output's own scale (which falls as 1/sqrt(Sk) for K1): the
 # bf16 roundings of the pre-scaled q, of p and of the output each cost up to
 # 2^-9 of what they round, so the kernel's error stays a few 1e-3 of max|plain|
 TOL_BF16 = 2e-2
+# an fp32 kernel (phase 9's fp32 forward) vs its fp32 plain version, relative
+# to max|plain| (tests/test_torch_kernels.py's fp32 tolerance)
+TOL_FP32 = 2e-5
 TOL_REF = 1e-3             # fp32 card vs fp32 CPU, relative to max |output|
 # int8 card vs int8 CPU, the card replaying the CPU's int8 activations: the
 # difference must stay under this share of the int8-vs-fp32 drift (the
@@ -198,6 +233,15 @@ FOREIGN_PACKAGES = ("safetensors", "transformers", "regex", "ftfy")
 # timed launches of every kernel and of its library call at every shape
 # (5 moved by up to 28% between runs: PERF.md, PR 2)
 TIMED_REPS = 20
+# phase 9, the mesh: ranks sharing the card, (job 1, seq 2, model 2); the mesh
+# runs against the same runs in one process, relative to max |x| (bf16, like
+# TOL_TWO_PASS and TOL_BATCH: the ranks sum tensor-parallel partial products
+# and attend over resharded blocks in another order); the ring's 32-frame
+# windowed forward; the Ulysses call's pixel count (5 branches x the 8 x 8 level)
+MESH_WORLD = 4
+TOL_MESH = 0.1
+MESH_RING_FRAMES, MESH_RING_WINDOW = 32, 16
+MESH_ULYSSES_PIXELS = 320
 HOST_CALLS = 200  # K3 wrapper calls timed on the host clock, back to back
 
 KERNELS = {
@@ -347,7 +391,7 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
     tmp = tempfile.mkdtemp(prefix=f"mvoc_smoke_{tag}_")
     dirs = [os.path.join(tmp, name) for name in ("bg", "obj0", "obj1")]
     t_main = time.perf_counter()
-    inv_secs = []
+    inv_secs, trajs = [], []
     for d, frames in zip(dirs, videos):
         (_, traj), secs = sync_time(lambda: pipe.invert(
             frames, height=size, width=size, num_frames=nf, num_inference_steps=steps,
@@ -355,6 +399,7 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
         if not np.isfinite(traj).all():
             raise RuntimeError(f"{tag}: inversion of {d} gave non-finite latents")
         inv_secs.append(secs)
+        trajs.append(traj)
         log(f"{tag} invert {os.path.basename(d)}: {steps} steps in {secs:.2f} s "
             f"(trajectory {traj.shape})")
     inv_launch, inv_shapes = read_counts()
@@ -398,7 +443,7 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
         f"per composite step: { {k: v / max(n_comp, 1) for k, v in comp_launch.items()} }; "
         f"per design on the main path: {variants}")
     return dict(final=final, root=tmp, stores=stores, launches=launches, shapes=shapes,
-                variants=variants,
+                variants=variants, trajs=trajs, video=video,
                 inv_launch=inv_launch, comp_launch=comp_launch, comp_shapes=comp_shapes,
                 steps=n_comp, step_s=step_times, inv_s=inv_secs, decode_s=dec_secs,
                 main_s=main_secs, peak_gib=peak)
@@ -1400,6 +1445,414 @@ def tiled_decode_phase(pipe, final, nf: int, height: int, width: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the (job, seq, model) mesh, MESH_WORLD ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+
+def ring_inputs(seed: int, frames: int, lat: int, d_ctx: int, device) -> list:
+    """A seeded UNet input of `frames` frames at lat x lat latents (fp32)."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(g.standard_normal(s).astype(np.float32), device=device)
+    return [mk(1, frames, lat, lat, 4), torch.tensor([501], device=device),
+            torch.tensor([8], device=device), mk(1, frames, lat, lat, 4),
+            mk(1, frames, lat, lat, 4), mk(1, frames, d_ctx), mk(1, 77, d_ctx)]
+
+
+def windowed_unet(unet, window: int):
+    """The same weights in a UNet whose temporal attention is banded."""
+    import torch
+
+    from mvoc_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+
+    with torch.device("meta"):
+        out = I2VGenXLUNet(dataclasses.replace(unet.config, temporal_window=window,
+                                               attn_mesh=None, temporal_cp=None))
+    out.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    return out.eval()
+
+
+def mesh_refs(pipe, videos, masks, stores, steps: int, seed: int) -> dict:
+    """Phase 9's single-process references on phase 2's bf16 pipeline and
+    stores: the fused composite, the fused composite with the objects'
+    masks exchanged (the J = 2 batch's second entry), and the 32-frame
+    windowed UNet forward that the ring runs on the mesh."""
+    import torch
+
+    nf, size = len(videos[0]), videos[0][0].size[0]
+    kw = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps,
+              guidance_scale=9.0, seed=seed, decode=False)
+
+    def comp(two_pass, m):
+        return pipe.sample_composite(PROMPT, videos[0][0], videos[0], videos[0], videos[1:], m,
+                                     m, stores[0], stores[1:], two_pass=two_pass, **kw)
+
+    with torch.inference_mode():
+        fused = comp(False, masks).float().cpu()
+        swapped = comp(False, masks[::-1].copy()).float().cpu()
+        unet_w = windowed_unet(pipe.unet, MESH_RING_WINDOW)
+        ring = unet_w(*ring_inputs(seed + 9, MESH_RING_FRAMES, size // pipe.vae_scale_factor,
+                                   pipe.unet.config.cross_attention_dim,
+                                   pipe.device)).float().cpu()
+    return dict(fused=fused, swapped=swapped, ring=ring)
+
+
+def _mesh_stage(out: dict, name: str, fn):
+    """Run fn with every launch and collective count at 0 and the peak reset;
+    record its wall time, launches, launch shapes, collectives and peak."""
+    import torch
+
+    from mvoc_tpu_torch.parallel import collectives as coll
+
+    reset_counts()
+    coll.reset_call_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        res = fn()
+    torch.cuda.synchronize()
+    launches, shapes = read_counts()
+    out["stages"][name] = dict(
+        s=time.perf_counter() - t0, launches=launches, collectives=dict(coll.CALLS),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["shapes"][name] = shapes
+    return res
+
+
+def _mesh_rank_body(rank: int, world: int, cfg: dict) -> dict:
+    import torch
+
+    from mvoc_tpu_torch.io.trajectory import TrajectoryStore
+    from mvoc_tpu_torch.ops import ring_attention as tring
+    from mvoc_tpu_torch.parallel import collectives as coll
+    from mvoc_tpu_torch.parallel import mesh as pm
+    from mvoc_tpu_torch.pipeline import core
+    from mvoc_tpu_torch.utils import testing as tt
+
+    dev, seed, steps, nf, size = "cuda", cfg["seed"], cfg["steps"], cfg["nf"], cfg["size"]
+    out = {"rank": rank, "stages": {}, "shapes": {}, "arrays": {}}
+    rng = np.random.default_rng(seed)
+    videos = [tt.synthetic_video(rng, nf, size) for _ in range(3)]
+    masks = cfg["masks"]
+    t0 = time.perf_counter()
+    pipe = tt.build_full_pipeline(seed=seed)
+    pipe.enable_mesh(world, seq=2)
+    mesh = pipe.mesh
+    out["build_s"] = time.perf_counter() - t0
+    out["mesh"] = repr(mesh)
+    coords = {a: mesh.rank_of(a) for a in mesh.axis_names}
+    out["coords"] = coords
+    dirs = [os.path.join(cfg["tmp"], n) for n in ("bg", "obj0", "obj1")]
+    kw = dict(height=size, width=size, num_frames=nf, num_inference_steps=steps, seed=seed)
+    trajs = _mesh_stage(out, "invert", lambda: [
+        pipe.invert(f, output_dir=d, **kw)[1] for d, f in zip(dirs, videos)])
+    stores = [TrajectoryStore(d) for d in dirs]
+
+    def comp(two_pass, m=masks):
+        return pipe.sample_composite(PROMPT, videos[0][0], videos[0], videos[0], videos[1:], m,
+                                     m, stores[0], stores[1:], two_pass=two_pass,
+                                     guidance_scale=9.0, decode=False, **kw)
+
+    stream = _mesh_stage(out, "stream", lambda: comp("stream"))
+    fused = _mesh_stage(out, "fused", lambda: comp(False))
+    video = _mesh_stage(out, "decode", lambda: pipe.decode_latents(stream, decode_chunk_size=1))
+    out["arrays"].update(trajs=np.stack(trajs), stream=stream.float().cpu().numpy(),
+                         fused=fused.float().cpu().numpy(), video=video)
+
+    # fp32: the full-width UNet forward of phase 4 on the mesh; then the same
+    # forward with a planted fault, the all-reduce after each row-split
+    # projection dropped (each rank keeps its own partial product)
+    pipe.disable_mesh()
+    unet32 = copy.deepcopy(pipe.unet).float()
+    pm.shard_params(unet32, mesh)
+    unet32.set_parallel(mesh)
+    inp = [torch.as_tensor(x, device=dev) for x in cfg["ref_input"]]
+    out["arrays"]["fp32"] = _mesh_stage(out, "fp32", lambda: unet32(*inp)).float().cpu().numpy()
+    from mvoc_tpu_torch.models import layers
+
+    row_parallel = layers.row_parallel
+
+    def dropped(layer, x, tp):
+        if tp is None:
+            return layer(x)
+        y = torch.nn.functional.linear(x, layer.weight)
+        return y if layer.bias is None else y + layer.bias.to(x.dtype)
+
+    layers.row_parallel = dropped
+    try:
+        out["arrays"]["fault"] = _mesh_stage(out, "fault", lambda: unet32(*inp)).float().cpu(
+            ).numpy()
+    finally:
+        layers.row_parallel = row_parallel
+    del unet32
+
+    # ring: the 32-frame windowed forward, frames over seq = 2, heads over model = 2
+    unet_w = windowed_unet(pipe.unet, MESH_RING_WINDOW)
+    pm.shard_params(unet_w, mesh)
+    unet_w.set_parallel(mesh, "ring")
+    rin = ring_inputs(seed + 9, MESH_RING_FRAMES, size // pipe.vae_scale_factor,
+                      pipe.unet.config.cross_attention_dim, dev)
+    out["arrays"]["ring"] = _mesh_stage(out, "ring", lambda: unet_w(*rin)).float().cpu().numpy()
+    del unet_w
+    # Ulysses: one 1280-channel temporal attention call (20 heads) over seq = 2
+    # and seq = 4, against ring_sdpa's unsharded result
+    g = torch.Generator(device=dev).manual_seed(seed)
+    heads = 20
+    qkv = [torch.randn((MESH_ULYSSES_PIXELS, nf, heads * 64), generator=g, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    whole = tring.ring_sdpa(*qkv, heads, pm.Mesh(), "seq", "ulysses")
+    for seq in (2, 4):
+        m = mesh if seq == 2 else pm.make_mesh(world, seq=4)
+        r = m.rank_of("seq")
+        loc = [t.chunk(seq, dim=1)[r] for t in qkv]
+        got = _mesh_stage(out, f"ulysses_seq{seq}", lambda: coll.all_gather(
+            tring.ring_sdpa(*loc, heads, m, "seq", "ulysses"), m, "seq", 1))
+        out[f"ulysses_seq{seq}_err"] = (got.float() - whole.float()).abs().max().item()
+        out[f"ulysses_scale"] = whole.float().abs().max().item()
+
+    # the job axis: (job 2, seq 2, model 1)
+    pipe.enable_mesh(world, seq=2, job=2)
+    out["job_mesh"] = repr(pipe.mesh)
+    _, traj_b = _mesh_stage(out, "invert_batch", lambda: pipe.invert_batch(videos, **kw))
+    entries = [dict(prompt=PROMPT, main_first_image=videos[0][0], main_image_list=videos[0],
+                    background_image_list=videos[0], objs_image_list=videos[1:],
+                    masks_soft=m, masks_binary=m, bg_store=stores[0], obj_stores=stores[1:],
+                    seed=seed) for m in (masks, masks[::-1].copy())]
+    lat_b = _mesh_stage(out, "composite_batch", lambda: pipe.sample_composite_batch(
+        entries, two_pass=False, guidance_scale=9.0, decode=False,
+        **{k: v for k, v in kw.items() if k != "seed"}))
+    out["arrays"].update(invert_batch=traj_b, composite_batch=lat_b.float().cpu().numpy())
+
+    # int8: enable_int8 before enable_mesh, then one fused composite step
+    pipe.disable_mesh()
+    pipe.enable_int8(mode="mixed")
+    pipe.enable_mesh(world, seq=2)
+    init, cond, one, ms, pb, ps, _ = one_step_inputs(pipe, videos, masks, stores, steps,
+                                                     seed, False)
+    q = _mesh_stage(out, "int8_step", lambda: core.pnp_composite_core(
+        pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
+        guidance_scale=9.0, two_pass=False))
+    out["int8_finite"] = bool(torch.isfinite(q).all())
+    pipe.disable_mesh()
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, cfg: dict) -> None:
+    """One rank of phase 9: a gloo process group over the ranks sharing the
+    card (NCCL refuses two ranks on one device), the body, its results."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the main process
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(minutes=5))
+    try:
+        out = _mesh_rank_body(rank, world, cfg)
+        with open(os.path.join(cfg["tmp"], f"rank{rank}.pkl"), "wb") as f:
+            import pickle
+
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(cfg: dict, refs: dict) -> dict:
+    """Phase 9: spawn MESH_WORLD ranks on the card, each running the mesh
+    paths (_mesh_rank_body), and hold their results against the
+    single-process runs (refs)."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log(f"mesh: {MESH_WORLD} ranks on one card, process group backend gloo (NCCL refuses two "
+        f"ranks on one device): collectives move CUDA tensors through host memory, so these "
+        f"are times of ranks sharing one card, not multi-GPU times")
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(MESH_WORLD, port, cfg), nprocs=MESH_WORLD)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(cfg["tmp"], f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    a0 = ranks[0]["arrays"]
+    # every rank returns the full result (the planted fault's ranks differ)
+    for rk in ranks[1:]:
+        for key, arr in a0.items():
+            if key == "fault":
+                continue
+            diff = float(np.abs(np.asarray(rk["arrays"][key], np.float64)
+                                - np.asarray(arr, np.float64)).max())
+            if diff > 0:
+                raise RuntimeError(f"mesh: rank {rk['rank']}'s {key} differs from rank 0's "
+                                   f"by {diff:.3g}")
+    checks, failed = {}, []
+
+    def gate(name, got, want, tol, beyond=False):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"mesh {name}: shape {got.shape} vs {want.shape} or non-finite")
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        checks[name] = rel
+        ok = rel > tol if beyond else rel <= tol
+        log(f"mesh {name}: {rel:.4g} of max |x| {np.abs(want).max():.4g} (tolerance {tol}, "
+            f"{'over' if beyond else 'under'} it to pass)")
+        if not ok:
+            failed.append(f"mesh {name}: {rel:.4g} of max |x| against tolerance {tol}")
+
+    for j, t in enumerate(refs["trajs"]):
+        gate(f"inversion {j} vs one process", a0["trajs"][j], t, TOL_MESH)
+    gate("stream composite vs one process", a0["stream"], refs["stream"], TOL_MESH)
+    gate("fused composite vs one process", a0["fused"], refs["fused"], TOL_MESH)
+    gate("decode vs one process", a0["video"], refs["video"], TOL_MESH)
+    gate("fp32 UNet forward vs one process on the card", a0["fp32"], refs["fp32"], TOL_REF)
+    gate("planted fault (the row-parallel all-reduce dropped) in the fp32 forward",
+         a0["fault"], refs["fp32"], TOL_MESH, beyond=True)
+    gate("ring (32 frames, window 16) vs one process", a0["ring"], refs["ring"], TOL_MESH)
+    for j, t in enumerate(refs["trajs"]):
+        gate(f"invert_batch video {j} vs one process", a0["invert_batch"][:, j], t, TOL_BATCH)
+    gate("composite_batch entry 0 vs one process", a0["composite_batch"][0], refs["fused"],
+         TOL_BATCH)
+    gate("composite_batch entry 1 (masks exchanged) vs one process",
+         a0["composite_batch"][1], refs["swapped"], TOL_BATCH)
+    for seq in (2, 4):
+        err, scale = ranks[0][f"ulysses_seq{seq}_err"], ranks[0]["ulysses_scale"]
+        checks[f"ulysses seq {seq}"] = err / scale
+        log(f"mesh Ulysses, 20 heads, seq = {seq}: max |diff| {err:.4g} of max |x| "
+            f"{scale:.4g} against ring_sdpa unsharded (tolerance {TOL_REF} relative)")
+        if not err <= TOL_REF * scale:
+            failed.append(f"mesh Ulysses seq = {seq} disagrees with ring_sdpa")
+    for rk in ranks:
+        if not rk["int8_finite"]:
+            raise RuntimeError(f"mesh: rank {rk['rank']}'s int8 step gave non-finite values")
+        st = rk["stages"]
+        for stage, need in (("invert", ("flash_attention", "frame_attention")),
+                            ("stream", ("flash_attention", "frame_attention")),
+                            ("fused", ("flash_attention", "frame_attention")),
+                            ("int8_step", ("flash_attention", "frame_attention", "s8_matmul"))):
+            for name in need:
+                if st[stage]["launches"][name] <= 0:
+                    failed.append(f"mesh rank {rk['rank']}: {name} never launched in {stage}")
+        steps = max(cfg["steps"] - 1, 1)
+        rk["local_shapes"] = {name: sorted({str(sig) for by_kernel in rk["shapes"].values()
+                                            for sig in by_kernel.get(name, {})})
+                              for name in KERNELS}
+        log(f"mesh rank {rk['rank']} local launch shapes: "
+            + "; ".join(f"{name} {len(v)}: {', '.join(v[:4])}{' ...' if len(v) > 4 else ''}"
+                        for name, v in rk["local_shapes"].items()))
+        log(f"mesh rank {rk['rank']} {rk['coords']} ({rk['mesh']}; build {rk['build_s']:.1f} s): "
+            + "; ".join(f"{k} {v['s']:.2f} s, peak {v['peak_gib']:.2f} GiB, launches "
+                        f"{v['launches']}, collectives {v['collectives']}"
+                        for k, v in st.items()))
+        log(f"mesh rank {rk['rank']}: s per composite step stream "
+            f"{st['stream']['s'] / steps:.3f}, fused {st['fused']['s'] / steps:.3f}; "
+            f"s per inversion step {st['invert']['s'] / (3 * cfg['steps']):.3f}")
+    shapes: dict = {}
+    for rk in ranks:
+        for stage, by_kernel in rk["shapes"].items():
+            for name, sigs in by_kernel.items():
+                for sig, n in sigs.items():
+                    shapes.setdefault(name, {})
+                    shapes[name][sig] = shapes[name].get(sig, 0) + n
+    launches = {name: sum(rk["stages"][st]["launches"][name] for rk in ranks
+                          for st in rk["stages"]) for name in KERNELS}
+    log(f"mesh: {wall:.1f} s for the phase (spawn to join); launches over every rank and stage "
+        f"{launches}; local shard shapes {sum(len(v) for v in shapes.values())}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return dict(wall_s=wall, checks=checks, launches=launches, shapes=shapes,
+                ranks=[{k: v for k, v in rk.items() if k not in ("arrays", "shapes")}
+                       for rk in ranks])
+
+
+def gloo_cuda_probe() -> dict:
+    """Which collectives a gloo process group (world 1, this process) takes
+    on CUDA tensors directly; parallel/collectives.py hands gloo CUDA
+    tensors for these and stages the point-to-point exchange through host
+    memory itself."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    x = torch.ones(4, device="cuda")
+    out = {}
+    try:
+        for name, fn in (("all_reduce", lambda: dist.all_reduce(x)),
+                         ("all_gather", lambda: dist.all_gather([torch.empty_like(x)], x)),
+                         ("all_to_all_single",
+                          lambda: dist.all_to_all_single(torch.empty_like(x), x))):
+            try:
+                fn()
+                torch.cuda.synchronize()
+                out[name] = True
+            except (RuntimeError, ValueError) as e:
+                out[name] = f"refused: {e}"[:160]
+    finally:
+        dist.destroy_process_group()
+    log(f"gloo on CUDA tensors (torch {torch.__version__}): {out}")
+    if not all(v is True for v in out.values()):
+        raise RuntimeError("gloo refuses a collective on CUDA tensors that "
+                           "parallel/collectives.py hands it")
+    return out
+
+
+def nccl_phase(pipe, inp) -> dict:
+    """A one-rank NCCL process group through enable_mesh (the launcher's
+    environment, the default backend on CUDA): the 1x1x1 mesh, whose UNet
+    forward is bitwise the unmeshed one."""
+    import torch
+    import torch.distributed as dist
+
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with torch.inference_mode():
+            before = pipe.unet(*inp)
+            pipe.enable_mesh()
+            backend = dist.get_backend()
+            after = pipe.unet(*inp)
+            t = torch.ones(1, device="cuda")
+            dist.all_reduce(t)
+        pipe.disable_mesh()
+        diff = (after.float() - before.float()).abs().max().item()
+        log(f"nccl: process group backend {backend}, world 1, mesh {pipe.mesh!r} after "
+            f"disable; the 1x1x1 mesh's UNet forward vs unmeshed max |diff| {diff}")
+        if backend != "nccl" or diff != 0.0 or t.item() != 1.0:
+            raise RuntimeError("the NCCL one-rank mesh is not the unmeshed run")
+        return dict(backend=backend, diff=diff)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _chunked(fn, n: int, chunk: int, *args):
     import torch
 
@@ -1425,12 +1878,22 @@ def band(f: int, window: int):
     return (idx[:, None] - idx[None, :]).abs() <= window // 2
 
 
+def _by_dtype(dtype):
+    """(tolerance relative to max|plain|, peak operation rate, bytes per
+    element) of a kernel launched on `dtype` (bf16 or fp32) tensors."""
+    import torch
+
+    if dtype == torch.float32:
+        return TOL_FP32, PEAK_FP32_FLOPS, 4
+    return TOL_BF16, PEAK_BF16_FLOPS, 2
+
+
 def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
     """K1 on [B, H, S, D] views (bias: its fp32 [Sq, Sk] or None; mask: the
     same as SDPA's boolean mask): error against the plain version in fp32
-    from the same bf16 inputs, times of the kernel, its call, the plain
-    version, the SIMT design and one SDPA call; operations counted
-    over the (query, key) pairs the function needs."""
+    from the same inputs, times of the kernel, its call, the plain version,
+    the SIMT design and one SDPA call; operations counted over the (query,
+    key) pairs the function needs."""
     import torch.nn.functional as F
 
     from mvoc_tpu_torch.ops import attention as A
@@ -1439,7 +1902,6 @@ def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
     sk = k.shape[2]
     out, design = launched_variant(A, "flash_attention", lambda: A.flash_attention(
         q, k, v, bias=bias))
-    old = A._flash_cuda(q, k, v, "simt", bias=bias)  # the old design, kept for comparison
     # plain version in fp32 from the same bf16 inputs, over (batch x head)
     # slices in chunks that keep their [Sq, Sk] fp32 logits under ~4 GB (one
     # slice at 14400 tokens holds 0.83 GB of them)
@@ -1452,19 +1914,24 @@ def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
 
     ref = plain(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
-    old_err = (old.float() - ref).abs().max().item()
-    tol = TOL_BF16 * ref.abs().max().item()
-    call_ms = cuda_ms(lambda: A.flash_attention(q, k, v, bias=bias), reps=TIMED_REPS)
+    rel, peak, elt = _by_dtype(q.dtype)
+    tol = rel * ref.abs().max().item()
     ms = graph_ms(lambda: A.flash_attention(q, k, v, bias=bias), reps=TIMED_REPS)
-    old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt", bias=bias), reps=3)
+    old = A._flash_cuda(q, k, v, "simt", bias=bias)  # the old design, for comparison
+    old_err = (old.float() - ref).abs().max().item()
+    call_ms = cuda_ms(lambda: A.flash_attention(q, k, v, bias=bias), reps=TIMED_REPS)
+    # warm from the launch above; one launch where it takes seconds (the
+    # 14400-token batches)
+    old_ms = cuda_ms(lambda: A._flash_cuda(q, k, v, "simt", bias=bias),
+                     reps=3 if ms < 10 else 1, warmup=0)
     plain_ms = cuda_ms(lambda: plain(q, k, v), reps=1)
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                       reps=TIMED_REPS)
     flops = 4.0 * b * h * needed_pairs * d
-    nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d) + (
+    nbytes = elt * (2.0 * b * h * sq * d + 2.0 * b * h * sk * d) + (
         0.0 if bias is None else 4.0 * sq * sk)
     return dict(err=err, old_err=old_err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS,
+                library_ms=lib_ms, flops=flops, bytes=nbytes, peak=peak,
                 old_ms=old_ms, design=design, out=out)
 
 
@@ -1477,10 +1944,11 @@ def flash_phase(sig, gen):
 
     if sig[0] in ("sf", "natural"):
         return band_phase(sig, gen)
-    b, h, sq, sk, d, _, biased = sig
+    b, h, sq, sk, d, dt, biased = sig
     dev = torch.device("cuda")
+    dtype = getattr(torch, dt.split(".")[-1])  # bf16 on the main paths, fp32 in phase 9's
     # the main path's layout: [B, S, H, D] projections viewed as [B, H, S, D]
-    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=dtype)
                .transpose(1, 2) for s in (sq, sk, sk))
     mask = band(sq, 16) if biased else None
     pairs = float(mask.sum().item()) if biased else float(sq) * sk
@@ -1492,7 +1960,7 @@ def flash_phase(sig, gen):
 def band_phase(case, gen):
     """K1 with the temporal window's band as its bias over F > 64 frames, on
     the [S, H, F, D] view layers.sdpa (layout "sf": [S, F, H*D]) or
-    layers.sdpa_frames (layout "natural": [1, F, S, H*D]) hands it; the
+    A.frame_axis_attention (layout "natural": [1, F, S, H*D]) hands it; the
     layer's own output must be the kernel's, bit for bit."""
     import torch
 
@@ -1518,7 +1986,7 @@ def band_phase(case, gen):
         layer = layers.sdpa(q, k, v, heads, mask=mask)
         same = torch.equal(layer, out.transpose(1, 2).reshape(s, f, heads * d))
     else:
-        layer = layers.sdpa_frames(q, k, v, heads, mask=mask)
+        layer = A.frame_axis_attention(q, k, v, heads, mask=mask, layout="natural")
         same = torch.equal(layer, out.permute(2, 0, 1, 3).reshape(1, f, s, heads * d))
     if not same:
         raise RuntimeError(f"K1 band case {case}: the layer's output is not the kernel's")
@@ -1555,15 +2023,19 @@ def sass_counts(stem: str) -> dict:
 
 
 def frame_phase(sig, gen):
+    """K2 at a launched signature: error against the plain version in fp32,
+    times of the kernel, its call, the plain version, the SIMT design and
+    one SDPA call."""
     import torch
     import torch.nn.functional as F
 
     from mvoc_tpu_torch.ops import attention as A
 
-    layout, b, f, s, heads, d, _, masked = sig
+    layout, b, f, s, heads, d, dt, masked = sig
     dev = torch.device("cuda")
+    dtype = getattr(torch, dt.split(".")[-1])  # bf16 on the main paths, fp32 in phase 9's
     shape = (b, f, s, heads * d) if layout == "natural" else (s, f, heads * d)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
                for _ in range(3))
     mask = None
     if masked:
@@ -1571,16 +2043,20 @@ def frame_phase(sig, gen):
         mask = (idx[:, None] - idx[None, :]).abs() <= 4
     out, design = launched_variant(A, "frame_attention", lambda: A.frame_attention(
         q, k, v, heads, mask=mask, layout=layout))
-    old = A._frame_cuda(q, k, v, heads, mask, layout, "simt")  # the PR 1 design
     ref = A.frame_attention_plain(q.float(), k.float(), v.float(), heads, mask=mask,
                                   layout=layout)
     err = (out.float() - ref).abs().max().item()
-    old_err = (old.float() - ref).abs().max().item()
-    tol = TOL_BF16 * ref.abs().max().item()
-    call_ms = cuda_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
-                      reps=TIMED_REPS)
+    rel, peak, elt = _by_dtype(dtype)
+    tol = rel * ref.abs().max().item()
     ms = graph_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
                   reps=TIMED_REPS)
+    n = b * s * heads
+    flops = 4.0 * n * f * f * d
+    nbytes = 4.0 * n * f * d * elt
+    old = A._frame_cuda(q, k, v, heads, mask, layout, "simt")  # the PR 1 design
+    old_err = (old.float() - ref).abs().max().item()
+    call_ms = cuda_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
+                      reps=TIMED_REPS)
     old_ms = graph_ms(lambda: A._frame_cuda(q, k, v, heads, mask, layout, "simt"), reps=5)
     plain_ms = cuda_ms(lambda: A.frame_attention_plain(q, k, v, heads, mask=mask,
                                                        layout=layout), reps=2)
@@ -1600,15 +2076,15 @@ def frame_phase(sig, gen):
     except RuntimeError as exc:  # a launch the library refuses (not the port's path)
         log(f"  library call refused at {sig} (batch x heads {qr.shape[0] * heads}): "
             f"{str(exc).splitlines()[0]}")
-    n = b * s * heads
-    flops = 4.0 * n * f * f * d
-    nbytes = 4.0 * n * f * d * 2
     return dict(err=err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                flops=flops, bytes=nbytes, peak=PEAK_BF16_FLOPS, old_ms=old_ms,
+                flops=flops, bytes=nbytes, peak=peak, old_ms=old_ms,
                 old_err=old_err, design=design)
 
 
 def s8_phase(sig, gen):
+    """K3 at a launched signature, bitwise against its plain version; times
+    of the kernel, its call, the plain version, the mma.sync design and
+    torch._int_mm plus the dequantise."""
     import torch
 
     from mvoc_tpu_torch.ops import s8gemm as S8
@@ -1623,7 +2099,6 @@ def s8_phase(sig, gen):
     sw = torch.rand(n, generator=gen, device=dev) * 0.1 + 1e-3
     out, design = launched_variant(S8, "s8_matmul", lambda: S8.s8_matmul(
         xq, wq, sx, sw, out_dtype=out_dtype))
-    old = S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma")  # the PR 2 design
     # plain version (exact float64 product), row-chunked to keep its float64
     # copy of x under ~2 GB
     chunk = max(1, int(2e9 // (8 * k)))
@@ -1633,12 +2108,16 @@ def s8_phase(sig, gen):
                         m, chunk, xq, sx)
 
     ref = plain()
-    exact = torch.equal(out, ref) and torch.equal(old, ref)
     err = (out.float() - ref.float()).abs().max().item()
+    ms = graph_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype), reps=TIMED_REPS)
+    out_bytes = torch.finfo(out_dtype).bits // 8
+    flops = 2.0 * m * k * n
+    nbytes = float(m * k + k * n + 4 * (m + n) + m * n * out_bytes)
+    old = S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma")  # the PR 2 design
+    exact = torch.equal(out, ref) and torch.equal(old, ref)
     old_err = (old.float() - ref.float()).abs().max().item()
     call_ms = cuda_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype),
                       reps=TIMED_REPS)
-    ms = graph_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype), reps=TIMED_REPS)
     old_ms = graph_ms(lambda: S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma"), reps=TIMED_REPS)
     plain_ms = cuda_ms(plain, reps=2)
     lib_ms = None
@@ -1654,9 +2133,6 @@ def s8_phase(sig, gen):
             lib_ms = graph_ms(library, reps=TIMED_REPS)
         except RuntimeError as exc:  # a layout cuBLASLt refuses
             log(f"  library call refused at {sig}: {str(exc).splitlines()[0]}")
-    out_bytes = torch.finfo(out_dtype).bits // 8
-    flops = 2.0 * m * k * n
-    nbytes = float(m * k + k * n + 4 * (m + n) + m * n * out_bytes)
     return dict(err=err, tol=TOL_S8, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, flops=flops,
                 bytes=nbytes, peak=PEAK_INT8_OPS, exact=exact, old_ms=old_ms, old_err=old_err,
@@ -1725,6 +2201,14 @@ def main() -> int:
         return 2
 
     # 0. the card
+    t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def mark(done: str) -> None:
+        """Seconds since the start when the phase(s) `done` ended."""
+        phase_s[done] = time.perf_counter() - t_start
+        log(f"[{phase_s[done]:.1f} s] phase {done} done")
+
     card = card_line()
     log(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1774,6 +2258,7 @@ def main() -> int:
         if sass[stem] and not any(c[op] for fn, c in sass[stem].items() if needle in fn):
             raise RuntimeError(f"{stem}: kernel {needle} has no {op} in its SASS")
 
+    mark("build")
     # 2. the bf16 slice at full width
     rng = np.random.default_rng(args.seed)
     size, nf, steps = 512, 16, args.steps  # the main path: 16 frames at 512 px
@@ -1797,6 +2282,7 @@ def main() -> int:
     if bf16["launches"]["s8_matmul"] != 0:
         raise RuntimeError("s8_matmul launched on the bf16 path")
 
+    mark("2")
     # 3. one fused step against one stream step, same inputs
     init, cond, one, ms, pb, ps, cw = one_step_inputs(pipe, videos, masks, bf16["stores"],
                                                       steps, args.seed, "stream")
@@ -1845,10 +2331,14 @@ def main() -> int:
     profiles = {"bf16": profile_step(lambda: core.pnp_composite_core(
         pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
         guidance_scale=9.0, two_pass="stream", capture_weights=cw), "bf16")}
+    # phase 9's single-process references, on this pipeline and these stores
+    mesh_ref = mesh_refs(pipe, videos, masks, bf16["stores"], steps, args.seed)
+    mesh_ref.update(trajs=bf16["trajs"], stream=bf16["final"].float().cpu(), video=bf16["video"])
     shutil.rmtree(bf16["root"])
     if read_counts()[0]["s8_matmul"] != 0:
         raise RuntimeError("s8_matmul launched on the bf16 path")
 
+    mark("3")
     # 4. reference on a small input: fp32 UNet on the card vs on the CPU, and
     # the same UNet quantized ("full" selection) on the card vs on the CPU
     unet32 = copy.deepcopy(pipe.unet).float()
@@ -1880,6 +2370,7 @@ def main() -> int:
         if read_counts()[0]["s8_matmul"] <= 0:
             raise RuntimeError("the int8 reference forward launched no s8_matmul")
         del q32, tape
+    mesh_ref["fp32"] = out_gpu
     ref_err = (out_gpu - out_cpu).abs().max().item()
     ref_scale = out_cpu.abs().max().item()
     log(f"reference: full-width UNet fp32, {rf} frames at {rl}x{rl} latents, card (kernels) "
@@ -1907,11 +2398,13 @@ def main() -> int:
         raise RuntimeError("the card's int8 activations disagree with the CPU's")
     torch.cuda.empty_cache()
 
+    mark("4")
     # 6b. the reuse and broadcast modes at 512 px, on phase 2's bf16 pipeline
     # (before phase 5 quantizes it)
     reuse = reuse_phase(pipe, videos, masks, args.seed)
     torch.cuda.empty_cache()
 
+    mark("6b")
     # 5. the int8 slice (mixed selection) on the same weights
     _, q_secs = sync_time(lambda: pipe.enable_int8(mode="mixed"))
     n_q = sum(isinstance(m, (Q.QuantLinear, Q.QuantConv)) for m in pipe.unet.modules())
@@ -1930,6 +2423,7 @@ def main() -> int:
         pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
         guidance_scale=9.0, two_pass="stream", capture_weights=cw), "int8-mixed")
 
+    mark("5")
     # 6. one stream composite step in int8 "full", on the same seeded weights
     del pipe
     torch.cuda.empty_cache()
@@ -1954,6 +2448,7 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
+    mark("6")
     # 7a. a full-width diffusers checkpoint: written, loaded, verified; then
     # 7. both CLIs at the templates' 1280 x 720 from that checkpoint, and a
     # tiled decode of their composite (both directories removed on any exit)
@@ -1965,10 +2460,23 @@ def main() -> int:
         cli_b = batch_cli_phase(cli, args.steps, cli_root)
         # 7c. both CLIs with the reuse modes, on the same pipeline and demo tree
         cli_r = cli_reuse_phase(cli, cli_root)
+        # 9 (NCCL): a one-rank NCCL process group through enable_mesh, on
+        # the CLI phase's pipeline and phase 4's small input
+        nccl = nccl_phase(cli["pipe"], [torch.as_tensor(x, device="cuda") for x in inp])
         for key in ("pipe", "final", "templates", "paths", "inv_cfgs", "comp_cfgs"):
             cli.pop(key)
         torch.cuda.empty_cache()
 
+    mark("7a-7c")
+    # 9. the mesh: MESH_WORLD ranks on the card, phase 2's weights and inputs
+    gloo_cuda = gloo_cuda_probe()
+    with tempfile.TemporaryDirectory(prefix="mvoc_smoke_mesh_") as mesh_root:
+        mesh = mesh_phase(dict(seed=args.seed, steps=steps, nf=nf,
+                               size=size, masks=masks, ref_input=inp, tmp=mesh_root), mesh_ref)
+    mesh.update(nccl=nccl, gloo_cuda=gloo_cuda)
+    torch.cuda.empty_cache()
+
+    mark("9")
     # 8. kernel phases at every shape the paths launched (+ ragged cases)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     s8_shapes = dict(int8["shapes"]["s8_matmul"])
@@ -1981,6 +2489,11 @@ def main() -> int:
                     + list(cli_b["shapes"][name]) + list(reuse["shapes"][name])
                     + list(cli_r["shapes"][name])):
             attn_shapes[name].setdefault(sig, 0)
+    for name, shapes in (("flash_attention", attn_shapes["flash_attention"]),
+                         ("frame_attention", attn_shapes["frame_attention"]),
+                         ("s8_matmul", s8_shapes)):
+        for sig in mesh["shapes"].get(name, {}):
+            shapes.setdefault(sig, 0)
     plans = (
         ("flash_attention", flash_phase, attn_shapes["flash_attention"],
          [(1, 5, 14400, 14400, 64, "torch.bfloat16", False)] + list(BAND_CASES)),
@@ -1991,15 +2504,18 @@ def main() -> int:
     table = []
     for name, run, launched, extra in plans:
         for sig in sorted(launched) + [e for e in extra if e not in launched]:
+            t_row = time.perf_counter()
             ph = run(sig, gen)
             b_ms, basis = bound(ph)
-            row = dict(kernel=name, shape=list(sig), launches=launched.get(sig, 0),
+            row = dict(kernel=name, shape=list(sig), wall_s=time.perf_counter() - t_row,
+                       launches=launched.get(sig, 0),
                        full_step_launches=full_shapes.get(name, {}).get(sig, 0),
                        cli_launches=cli["shapes"].get(name, {}).get(sig, 0),
                        cli_batch_launches=cli_b["shapes"].get(name, {}).get(sig, 0),
                        reuse_launches=reuse["shapes"].get(name, {}).get(sig, 0),
                        cli_reuse_launches=cli_r["shapes"].get(name, {}).get(sig, 0),
                        tiled_launches=cli["tiled"]["shapes"].get(name, {}).get(sig, 0),
+                       mesh_launches=mesh["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
                        bound_by=basis)
@@ -2012,24 +2528,27 @@ def main() -> int:
                        else ph["ms"] / ph["library_ms"])
             lib_txt = ("no library call" if row["vs_library"] is None
                        else f"{row['vs_library']:.2f}x the library call")
+            old_txt = (f"{OLD_DESIGN[name]} design {ph['old_ms']:.4f} ms, "
+                       f"err {ph['old_err']:.3g}")
             extra = (f" [{ph['design']}: {rate:.1f} {unit}, {100 * row['bound_share']:.1f}% "
-                     f"of the bound, {lib_txt}; {OLD_DESIGN[name]} design "
-                     f"{ph['old_ms']:.4f} ms, err {ph['old_err']:.3g}]")
+                     f"of the bound, {lib_txt}; {old_txt}]")
             table.append(row)
-            peak_txt = "989 TF/s" if ph["peak"] == PEAK_BF16_FLOPS else "1979 TOP/s int8"
+            peak_txt = {PEAK_BF16_FLOPS: "989 TF/s bf16", PEAK_FP32_FLOPS: "67 TF/s fp32",
+                        PEAK_INT8_OPS: "1979 TOP/s int8"}[ph["peak"]]
             log(f"phase {name} {sig}: max_abs_err {ph['err']:.3g} (tol {ph['tol']:.3g}) "
-                f"kernel_ms {ph['ms']:.4f} (call_ms {ph['call_ms']:.4f}) "
-                f"plain_ms {ph['plain_ms']:.4f} "
+                f"kernel_ms {ph['ms']:.4f} (call_ms {fmt_ms(ph['call_ms'])}) "
+                f"plain_ms {fmt_ms(ph['plain_ms'])} "
                 f"library_ms {fmt_ms(ph['library_ms'])} bound_ms {b_ms:.4f} ({basis}: "
                 f"{'ops at ' + peak_txt if basis == 'operations' else 'bytes at 3.35 TB/s'}) "
                 f"main-path launches {row['launches']}, CLI launches {row['cli_launches']}, "
                 f"batched-CLI launches {row['cli_batch_launches']}, "
                 f"reuse launches {row['reuse_launches']}, "
                 f"reuse-CLI launches {row['cli_reuse_launches']}, "
-                f"tiled-decode launches {row['tiled_launches']}{extra}")
+                f"tiled-decode launches {row['tiled_launches']}, "
+                f"mesh launches (all ranks) {row['mesh_launches']}{extra}")
             if not ph["err"] <= ph["tol"] or not ph.get("exact", True):
                 raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
-            if not ph.get("old_err", 0.0) <= ph["tol"]:
+            if not ph["old_err"] <= ph["tol"]:
                 raise RuntimeError(f"{name} {sig}: old design's error {ph['old_err']} over "
                                    f"{ph['tol']}")
             torch.cuda.empty_cache()
@@ -2065,14 +2584,15 @@ def main() -> int:
         f"{ {k: round(v, 3) for k, v in cli_kernel_s.items()} } s of {cli['total_s']:.1f} s "
         f"wall ({ {k: round(v / cli['total_s'], 4) for k, v in cli_kernel_s.items()} })")
 
+    mark("8")
     host = k3_host_costs(gen)
     log(f"K3 host cost per launch at [4096, 1280, 1280] -> bf16: encoding the two TMA tensor "
         f"maps {host['encode_us']:.2f} us (mean of 10000); the whole s8_matmul call "
         f"{host['call_us']:.1f} us on the host clock ({HOST_CALLS} calls back to back)")
 
     os.makedirs("chiprun_out", exist_ok=True)
-    summary = {tag: {k: v for k, v in path.items() if k not in ("final", "root", "stores",
-                                                                "shapes", "comp_shapes")}
+    summary = {tag: {k: v for k, v in path.items() if k not in (
+        "final", "root", "stores", "shapes", "comp_shapes", "trajs", "video")}
                for tag, path in (("bf16", bf16), ("int8_mixed", int8))}
     with open(os.path.join("chiprun_out", "chip_smoke_phases.json"), "w") as f:
         json.dump(dict(card=card, sass=sass, paths=summary, int8_full_step=dict(
@@ -2086,14 +2606,16 @@ def main() -> int:
             cli_batched={k: v for k, v in cli_b.items() if k != "shapes"},
             reuse={k: v for k, v in reuse.items() if k != "shapes"},
             cli_reuse={k: v for k, v in cli_r.items() if k != "shapes"},
-            phases=table), f, indent=1)
+            mesh={k: v for k, v in mesh.items() if k != "shapes"}, phase_end_s=phase_s,
+            phases=table), f, indent=1, default=str)
 
     # one row per kernel, from this slice's path that launched it (K1, K2:
     # the CLIs at 1280 x 720; K3: the int8-mixed path), with the launches of
     # every path; the row's times at the shape that path spends most on
     by_path = {"bf16": bf16["launches"], "int8-mixed": int8["launches"],
                "int8-full-step": full_launch, "cli": cli["launches"],
-               "cli-batched": cli_b["launches"], "cli-reuse": cli_r["launches"]}
+               "cli-batched": cli_b["launches"], "cli-reuse": cli_r["launches"],
+               "mesh": mesh["launches"]}
     count_key = {"flash_attention": "cli_launches", "frame_attention": "cli_launches",
                  "s8_matmul": "launches"}
     kernels = []

@@ -7,8 +7,16 @@ overrides, `active` flags, `ReplaceMe` sentinels, so the reference's own
 config files run unchanged.  The template's `device` key picks the torch
 device when it names one (`cpu`, `cuda`, `cuda:N`); anything else (the
 shipped templates say "tpu") means CUDA, and without CUDA the CLIs raise:
-there is no fall-back to the CPU.  The device mesh, not ported yet, raises
-NotImplementedError naming its ROADMAP.md item.
+there is no fall-back to the CPU.
+
+The device mesh (--mesh, the template's mesh_devices) runs one process per
+rank under a launcher:
+
+    torchrun --nproc_per_node N -m mvoc_tpu_torch.cli.inverse ... --mesh N
+
+(NCCL on CUDA, one card per rank by LOCAL_RANK; gloo with `device: cpu`).
+Every rank runs the whole CLI; rank 0 alone writes the trajectories, media
+and metrics.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import re
 import torch
 
 from mvoc_tpu_torch import config as cfglib
+from mvoc_tpu_torch.parallel import mesh as pm
 from mvoc_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("mvoc_tpu_torch")
@@ -45,9 +54,9 @@ def parse_args(default_template: str, argv=None):
                    help="write a torch.profiler (Chrome) trace here")
     p.add_argument(
         "--mesh", type=str, default=None,
-        help="shard the pipeline over a device mesh: an int device count or "
-        "'auto' (all visible devices); overrides the template's mesh_devices "
-        "(not ported yet: ROADMAP.md item 10)",
+        help="shard the pipeline over a device mesh: an int rank count or "
+        "'auto' (the launcher's world size); overrides the template's mesh_devices; "
+        "more than one rank runs under torchrun --nproc_per_node N",
     )
     p.add_argument(
         "--batch", action="store_true",
@@ -56,12 +65,12 @@ def parse_args(default_template: str, argv=None):
     )
     p.add_argument(
         "--mesh_seq", type=int, default=None,
-        help="frame-parallel ('seq') width of the mesh (not ported yet: ROADMAP.md item 10)",
+        help="frame-parallel ('seq') width of the mesh; the rest is tensor parallelism "
+        "('model')",
     )
     p.add_argument(
         "--mesh_job", type=int, default=None,
-        help="independent-video ('job') width of the mesh (not ported yet: "
-        "ROADMAP.md item 10)",
+        help="independent-video ('job') width of the mesh (pairs with --batch)",
     )
     return p.parse_args(argv)
 
@@ -106,16 +115,71 @@ def build_pipeline(args, template_cfg):
     return I2VGenXLPipeline.from_pretrained(ckpt, dtype=dtype, device=device)
 
 
+def init_launcher(template_cfg) -> None:
+    """Under a launcher (torchrun), initialise the process group before the
+    pipeline is built, so each rank builds it on its own card (LOCAL_RANK):
+    NCCL on CUDA, gloo on the CPU."""
+    if pm.launched():
+        pm.init_distributed(template_device(template_cfg))
+
+
 def apply_mesh(pipe, args, template_cfg):
-    """Sharding over a device mesh (--mesh, the template's mesh_devices): not
-    ported yet, refused when a mesh size is asked for.  As in the JAX CLI,
-    --mesh_seq / --mesh_job without a mesh size leave the pipeline as it is."""
+    """Shard the pipeline over a (job, seq, model) mesh when --mesh or the
+    template's mesh_devices asks for one (JAX's apply_mesh): 'auto' is the
+    launcher's world size; a count above it warns and takes the world; a
+    count below it puts ranks 0..n-1 on the mesh and the others leave
+    (`mesh.member` False: the CLIs return without running or writing).
+    --mesh_seq / --mesh_job (or mesh_seq / mesh_job) set the axes, and the
+    template's `context_parallel: ring|ulysses` the temporal attention.
+    Without a launcher a mesh raises, naming the torchrun command: the JAX
+    package runs a mesh in one process, the port one process per rank.  As
+    in the JAX CLI, --mesh_seq / --mesh_job without a mesh size leave the
+    pipeline as it is."""
     spec = args.mesh if args.mesh is not None else template_cfg.get("mesh_devices")
     if spec in (None, "", 0, "0", "off", False):
         return pipe
-    raise NotImplementedError(
-        f"the device mesh (--mesh {spec}, --mesh_seq {args.mesh_seq}, --mesh_job "
-        f"{args.mesh_job}) is not ported yet (ROADMAP.md §1 item 10: multi-GPU)")
+    if not pm.launched() and str(spec) != "1":
+        raise RuntimeError(
+            f"--mesh {spec} runs one process per rank: launch the CLI with "
+            f"`torchrun --nproc_per_node <ranks> -m mvoc_tpu_torch.cli.<inverse|composite> ... "
+            f"--mesh {spec}`")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    n = world if str(spec) == "auto" else int(spec)
+    if n > world:
+        logger.warning("mesh_devices=%d > %d ranks in the world — using %d", n, world, world)
+        n = world
+    seq = args.mesh_seq if args.mesh_seq is not None else template_cfg.get("mesh_seq")
+    job = args.mesh_job if args.mesh_job is not None else template_cfg.get("mesh_job")
+    pipe = pipe.enable_mesh(n, seq=int(seq) if seq else None, job=int(job) if job else 1)
+    cp = template_cfg.get("context_parallel")
+    if cp:
+        # ring / Ulysses temporal attention over the frames split on "seq"
+        pipe.unet.set_parallel(pipe.unet.config.attn_mesh, str(cp))
+        logger.info("temporal context parallelism: %s", cp)
+    return pipe
+
+
+def is_writer(pipe) -> bool:
+    """Whether this process writes the CLI's files: rank 0 of the mesh (the
+    only process without one)."""
+    return pm.is_writer(getattr(pipe, "mesh", None))
+
+
+def off_mesh(pipe) -> bool:
+    """A rank outside a mesh smaller than the world: it runs nothing."""
+    mesh = getattr(pipe, "mesh", None)
+    if mesh is not None and not mesh.member:
+        logger.info("rank outside the %d-rank mesh: leaving without running", mesh.size)
+        return True
+    return False
+
+
+def save_config(pipe, config) -> None:
+    """save_run_config on rank 0 only."""
+    from mvoc_tpu_torch.utils.profiling import save_run_config
+
+    if is_writer(pipe):
+        save_run_config(config, config.output_dir)
 
 
 def apply_quantize(pipe, template_cfg):

@@ -30,7 +30,7 @@ from mvoc_tpu_torch.cli import common
 from mvoc_tpu_torch.io import masks as masklib
 from mvoc_tpu_torch.io import media
 from mvoc_tpu_torch.io.trajectory import TrajectoryStore
-from mvoc_tpu_torch.utils.profiling import StepTimer, save_run_config, trace
+from mvoc_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = logging.getLogger("mvoc_tpu_torch.composite")
 
@@ -170,7 +170,9 @@ def export_dir(config) -> str:
     return os.path.join(config.output_dir, suffix)
 
 
-def _export_video(video, config) -> None:
+def _export_video(pipe, video, config) -> None:
+    if not common.is_writer(pipe):
+        return
     image_size = tuple(config.image_size)
     out_dir = export_dir(config)
     os.makedirs(out_dir, exist_ok=True)
@@ -189,7 +191,7 @@ def run_entry(pipe, config) -> None:
         pipe.enable_vae_tiling()
     per_entry, static, _ = _entry_inputs(pipe, config)
     video = pipe.sample_composite(**per_entry, **static)
-    _export_video(video, config)
+    _export_video(pipe, video, config)
 
 
 def run_batched(pipe, configs) -> list:
@@ -213,7 +215,7 @@ def run_batched(pipe, configs) -> list:
                     [c.get("edited_video_name", c.video_name) for c, _, _ in group])
         videos = pipe.sample_composite_batch([pe for _, pe, _ in group], **group[0][2])
         for (config, _, _), video in zip(group, videos):
-            _export_video(video, config)
+            _export_video(pipe, video, config)
             done.append(config)
     return done
 
@@ -261,13 +263,13 @@ def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None,
                 handled = run_batched(pipe, configs)
         for config in configs:
             if any(config is c for c in handled):
-                save_run_config(config, config.output_dir)
+                common.save_config(pipe, config)
                 continue
             name = config.get("edited_video_name", config.video_name)
             logger.info("processing %s", name)
             with timer.stage(f"composite/{name}"):
                 run_entry(pipe, config)
-            save_run_config(config, config.output_dir)
+            common.save_config(pipe, config)
     logger.info("timings: %s", timer.summary())
     return timer
 
@@ -276,9 +278,12 @@ def main(argv=None) -> None:
     args = common.parse_args("configs/group_composite/template.yaml", argv)
     template, entries = common.load_configs(args)
     common.setup_logging(template)
+    common.init_launcher(template)
     pipe = common.build_pipeline(args, template)
     pipe = common.apply_unet_options(pipe, template)
     pipe = common.apply_mesh(pipe, args, template)
+    if common.off_mesh(pipe):
+        return
     pipe = common.apply_quantize(pipe, template)
     run(pipe, configure(template, entries), args.profile_dir,
         batch=args.batch or template.get("batch_composites", False))

@@ -31,7 +31,7 @@ from mvoc_tpu_torch.io.trajectory import NATIVE_NAME, STACK_NAME, TrajectoryStor
 from mvoc_tpu_torch.ops.ddim import sampling_timesteps
 from mvoc_tpu_torch.utils.autoreuse import resolve_auto_reuse
 from mvoc_tpu_torch.utils.metrics import psnr, ssim
-from mvoc_tpu_torch.utils.profiling import StepTimer, save_run_config, trace
+from mvoc_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = logging.getLogger("mvoc_tpu_torch.inverse")
 
@@ -190,6 +190,8 @@ def run_entry(pipe, config) -> None:
         score_psnr = psnr(video, src)
         score_ssim = ssim(video, src)
         logger.info("reconstruction PSNR %.2f dB, SSIM %.4f", score_psnr, score_ssim)
+        if not common.is_writer(pipe):
+            return
         os.makedirs(config.output_dir, exist_ok=True)
         pil = media.video_to_pil(video)
         media.export_to_video(pil, os.path.join(config.output_dir, "ddim_reconstruction.mp4"), fps=10)
@@ -238,7 +240,7 @@ def run(pipe, configs, profile_dir=None, timer: StepTimer | None = None,
             logger.info("processing %s", config.video_name)
             with timer.stage(f"invert/{config.video_name}"):
                 run_entry(pipe, config)
-            save_run_config(config, config.output_dir)
+            common.save_config(pipe, config)
     logger.info("timings: %s", timer.summary())
     return timer
 
@@ -247,9 +249,12 @@ def main(argv=None) -> None:
     args = common.parse_args("configs/group_inversion/template.yaml", argv)
     template, entries = common.load_configs(args)
     common.setup_logging(template)
+    common.init_launcher(template)
     pipe = common.build_pipeline(args, template)
     pipe = common.apply_unet_options(pipe, template)
     pipe = common.apply_mesh(pipe, args, template)
+    if common.off_mesh(pipe):
+        return
     pipe = common.apply_quantize(pipe, template)
     run(pipe, configure(template, entries), args.profile_dir,
         batch=args.batch or template.get("batch_inversions", False))

@@ -12,6 +12,17 @@ Module and parameter names are the diffusers keys, so a diffusers state
 dict loads with no key map (models/convert.py bridges the JAX params).
 Norm statistics and softmax run in fp32; the affine parts run in the
 activation dtype.
+
+On a device mesh (parallel/mesh.py) the UNet forward runs each rank on its
+frames of the "seq" axis (`mesh.current_frame_shard()`), and the layers that
+cross frames exchange what they need: the temporal transformers' joint
+(F, H, W) GroupNorm all-reduces its sums over "seq" in fp32; temporal
+attention reshards frames to pixels and back (ops/attention.
+sharded_frame_attention) or runs ring / Ulysses context parallelism
+(ops/ring_attention); a temporal conv layer all-gathers its input frames
+and runs on all of them.  Layers that shard_params split over "model"
+(attention heads, feed-forward inner width, the timestep MLP) all-reduce
+after their row-split output projection (`row_parallel`).
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvoc_tpu_torch.ops import attention as attn_ops
+from mvoc_tpu_torch.ops import ring_attention
+from mvoc_tpu_torch.parallel import collectives as coll
+from mvoc_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS, current_frame_shard, frame_shard
 
 # A QKEdit receives (q, k) right after the q/k projections (before the head
 # split) and returns the edited (q, k): the PnP injection hook.
@@ -45,23 +59,44 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
     return emb
 
 
+def row_parallel(layer: nn.Module, x: torch.Tensor, tp) -> torch.Tensor:
+    """layer(x) for a Linear / QuantLinear whose input columns shard_params
+    split over the mesh's "model" axis (tp): this rank's partial product,
+    summed over the axis in fp32, rounded to x's dtype, then the bias."""
+    if tp is None:
+        return layer(x)
+    part = layer.partial_product(x, tp) if hasattr(layer, "partial_product") else F.linear(
+        x, layer.weight)
+    y = coll.all_reduce(part, tp, MODEL_AXIS).to(x.dtype)
+    return y if layer.bias is None else y + layer.bias.to(x.dtype)
+
+
 class TimestepEmbedding(nn.Module):
-    """linear_1 -> silu -> linear_2."""
+    """linear_1 -> silu -> linear_2 (column / row split under a mesh)."""
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
         self.linear_1 = nn.Linear(in_channels, time_embed_dim)
         self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.tp = None  # the mesh, once shard_params split this MLP
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        return row_parallel(self.linear_2, F.silu(self.linear_1(sample)), self.tp)
+
+
+def _frame_sum(t: torch.Tensor, fs) -> torch.Tensor:
+    """Sums over this rank's frames -> sums over all frames (fp32)."""
+    return coll.all_reduce(t, fs.mesh, SEQ_AXIS)
 
 
 class GroupNorm(nn.Module):
     """torch nn.GroupNorm semantics on channels-last input with one leading
     batch dim (4-D [B, H, W, C] or 5-D [B, F, H, W, C] with joint (F, H, W)
     statistics).  Two-pass centred variance in fp32; the affine is folded
-    into per-channel coefficients applied in the activation dtype."""
+    into per-channel coefficients applied in the activation dtype.  A 5-D
+    input holding this rank's frames (a sharded frame shard) takes its
+    statistics over all frames: both passes' sums are all-reduced over
+    "seq"."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -77,9 +112,18 @@ class GroupNorm(nn.Module):
         dims = tuple(range(1, x.ndim - 1))
         bshape = (b,) + (1,) * len(dims) + (c,)
         xf = x.float()
-        mean_c = xf.mean(dim=dims)                                   # [B, C]
+        fs = current_frame_shard()
+        if x.ndim == 5 and fs is not None and fs.sharded:
+            count = math.prod(x.shape[1:-1]) * fs.mesh.size_of(SEQ_AXIS)
+
+            def mean(t):
+                return _frame_sum(t.sum(dim=dims), fs) / count
+        else:
+            def mean(t):
+                return t.mean(dim=dims)
+        mean_c = mean(xf)                                            # [B, C]
         mean_ch = mean_c.view(b, g, c // g).mean(-1).repeat_interleave(c // g, -1)
-        cen2_c = (xf - mean_ch.view(bshape)).square().mean(dim=dims)
+        cen2_c = mean((xf - mean_ch.view(bshape)).square())
         del xf
         var_g = cen2_c.view(b, g, c // g).mean(-1)
         inv_ch = torch.rsqrt(var_g + self.eps).repeat_interleave(c // g, -1)
@@ -151,45 +195,30 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     return out.transpose(1, 2).reshape(b, sq, inner)
 
 
-def sdpa_frames(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention across the FRAME axis of frame-major [B, F, S, H*D] tokens,
-    with no re-layout of q, k and v: K2 (natural layout) up to 64 frames.
-
-    Beyond 64 frames K1 takes the call, with the band mask (if any) as its
-    bias.  K1 reads [batch, head, seq, D] through one stride each, and the
-    natural layout's batch is two axes (B with stride F*S*H*D, the pixel S
-    with stride H*D), so each of the B entries launches K1 once on its
-    [S, H, F, D] view, read in place; only the output is laid back, by one
-    copy.  That spends B launches (B <= N+3 branches) instead of a re-layout
-    of all four tensors, and keeps K1's C interface at one batch stride."""
-    b, f, s, inner = q.shape
-    if f <= attn_ops.FRAME_MAX_FRAMES:
-        return attn_ops.frame_attention(q, k, v, heads, mask=mask, layout="natural")
-    d = inner // heads
-    bias = None if mask is None else attn_ops.band_bias(mask).to(q.device)
-
-    def view(t, i):  # entry i as [S, H, F, D]
-        return t[i].unflatten(-1, (heads, d)).permute(1, 2, 0, 3)
-
-    outs = [attn_ops.flash_attention(view(q, i), view(k, i), view(v, i), bias=bias)
-            for i in range(b)]
-    return torch.stack([o.permute(2, 0, 1, 3) for o in outs]).reshape(b, f, s, inner)
-
-
 class Attention(nn.Module):
     """diffusers `Attention`: to_q/to_k/to_v without bias, to_out.0 with
     bias; optional cross-attention context; optional Q/K edit after the
-    projections and before the head split."""
+    projections and before the head split.
+
+    temporal: the token axis is the frame axis (the temporal transformers,
+    the image-latents temporal encoder); frame_axis: the tokens are
+    frame-major [B, F, S, H*D] (natural layout), else [B*S, F, H*D].  Under
+    a mesh: `tp` once shard_params split the heads over "model" (heads is
+    then this rank's count), `context_parallel` "ring" / "ulysses" for
+    temporal attention over frames split on "seq"."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, out_bias: bool = True,
-                 frame_axis: bool = False):
+                 frame_axis: bool = False, temporal: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
         self.heads = heads
         self.frame_axis = frame_axis
+        self.temporal = temporal or frame_axis
+        self.tp = None
+        self.context_parallel: Optional[str] = None
+        self.window: Optional[int] = None  # the temporal band, for context parallelism
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
@@ -205,11 +234,46 @@ class Attention(nn.Module):
         v = self.to_v(ctx)
         if qk_edit is not None:
             q, k = qk_edit(q, k)
-        if self.frame_axis:
-            out = sdpa_frames(q, k, v, self.heads, mask=attn_mask)
+        fs = current_frame_shard()
+        if fs is not None:
+            out = self._sharded(q, k, v, attn_mask, fs)
+        elif self.frame_axis:
+            out = attn_ops.frame_axis_attention(q, k, v, self.heads, mask=attn_mask,
+                                                layout="natural")
         else:
             out = sdpa(q, k, v, self.heads, mask=attn_mask)
-        return self.to_out[0](out)
+        return row_parallel(self.to_out[0], out, self.tp)
+
+    def _sharded(self, q, k, v, attn_mask, fs):
+        """The attention kernel of a forward on a mesh.  Temporal: frames
+        resharded to pixels around K2 (or ring / Ulysses).  Spatial and
+        cross: on this rank's block (its frames, its heads) as they are;
+        when the frames do not divide "seq" and every seq rank holds all of
+        them, K1's (batch, head, query) work splits over "seq" and is
+        gathered back.  An attention left whole over "model" (its heads do
+        not divide) runs whole on each model rank: gathering a split output
+        back would move more bytes than its kernel reads."""
+        mesh, heads = fs.mesh, self.heads
+        if self.temporal:
+            if self.context_parallel is not None and fs.sharded:
+                # the band only where it is narrower than the video, as
+                # TransformerTemporalModel builds its mask
+                window = self.window if self.window is not None and self.window < fs.frames \
+                    else None
+                return ring_attention.ring_sdpa(q, k, v, heads, mesh, SEQ_AXIS,
+                                                self.context_parallel, window)
+            return attn_ops.sharded_frame_attention(
+                q, k, v, heads, mesh, mask=attn_mask,
+                layout="natural" if self.frame_axis else "sf", frames_sharded=fs.sharded,
+                axes=(SEQ_AXIS,))
+        if fs.sharded or mesh.size_of(SEQ_AXIS) == 1:
+            return sdpa(q, k, v, heads)
+        b, sq, inner = q.shape
+        sk, d = k.shape[1], inner // heads
+        out = attn_ops.sharded_flash_attention(
+            q.view(b, sq, heads, d).transpose(1, 2), k.view(b, sk, heads, d).transpose(1, 2),
+            v.view(b, sk, heads, d).transpose(1, 2), mesh, axes=(SEQ_AXIS,))
+        return out.transpose(1, 2).reshape(b, sq, inner)
 
 
 class _GEGLU(nn.Module):
@@ -249,13 +313,15 @@ class FeedForward(nn.Module):
             act = _GELU(dim, inner)
         else:
             raise ValueError(f"unknown activation {activation}")
+        self.inner = inner
         self.inner_cols = inner * 2 if activation == "geglu" else inner
         self.chunk_rows = chunk_rows
         self.dim = dim
         self.net = nn.ModuleList([act, nn.Dropout(0.0), nn.Linear(inner, dim)])
+        self.tp = None  # the mesh, once shard_params split the inner width
 
     def _ff(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        return row_parallel(self.net[2], self.net[0](x), self.tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -276,16 +342,16 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
                  double_self_attention: bool = False, activation: str = "geglu",
-                 ff_chunk_rows: int = 0, frame_axis: bool = False):
+                 ff_chunk_rows: int = 0, frame_axis: bool = False, temporal: bool = False):
         super().__init__()
         self.double_self_attention = double_self_attention
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, heads, dim_head, frame_axis=frame_axis)
+        self.attn1 = Attention(dim, heads, dim_head, frame_axis=frame_axis, temporal=temporal)
         self.norm2 = LayerNorm(dim)
         self.attn2 = Attention(
             dim, heads, dim_head,
             cross_attention_dim=None if double_self_attention else cross_attention_dim,
-            frame_axis=frame_axis)
+            frame_axis=frame_axis, temporal=temporal)
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim, activation=activation, chunk_rows=ff_chunk_rows)
 
@@ -357,9 +423,13 @@ class TransformerTemporalModel(nn.Module):
     [B*F, H, W, C] -> GroupNorm with joint (F, H, W) statistics -> tokens
     -> proj_in -> blocks (double self-attention) -> proj_out -> + residual.
     natural_layout keeps the tokens frame-major [B, F, H*W, C] and attends
-    across F directly (sdpa_frames); otherwise tokens are [B*H*W, F, C].
+    across F directly (ops/attention.frame_axis_attention); otherwise tokens are [B*H*W, F, C].
     Both compute the same function.  window: frames attend within
-    +-window/2 (band mask) when set and smaller than the frame count."""
+    +-window/2 (band mask) when set and smaller than the frame count.
+    On a mesh the frames may be split over "seq": the band is over all
+    frames, and context_parallel ("ring" / "ulysses", set_context_parallel)
+    attends across the split frames by ops/ring_attention, in the
+    [B*H*W, F, C] layout (effective_natural_layout)."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, num_layers: int = 1,
                  norm_num_groups: int = 32, window: Optional[int] = None,
@@ -368,13 +438,26 @@ class TransformerTemporalModel(nn.Module):
         inner = heads * dim_head
         self.window = window
         self.natural_layout = natural_layout
+        self.requested_natural_layout = natural_layout
         self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, double_self_attention=True,
-                                  ff_chunk_rows=ff_chunk_rows, frame_axis=natural_layout)
+                                  ff_chunk_rows=ff_chunk_rows, frame_axis=natural_layout,
+                                  temporal=True)
             for _ in range(num_layers)])
+        for blk in self.transformer_blocks:
+            blk.attn1.window = blk.attn2.window = window
         self.proj_out = nn.Linear(inner, in_channels)
+
+    def set_context_parallel(self, method: Optional[str]) -> None:
+        """Temporal attention as ring / Ulysses context parallelism (None: off),
+        which takes the [B*H*W, F, C] layout (effective_natural_layout)."""
+        self.natural_layout = effective_natural_layout(self.requested_natural_layout, method)
+        for blk in self.transformer_blocks:
+            for attn in (blk.attn1, blk.attn2):
+                attn.context_parallel = method
+                attn.frame_axis = self.natural_layout
 
     def forward(self, hidden_states: torch.Tensor, num_frames: int,
                 attn1_qk_edit: Optional[QKEdit] = None,
@@ -388,8 +471,10 @@ class TransformerTemporalModel(nn.Module):
             x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, num_frames, c)
         x = self.proj_in(x)
         attn_mask = None
-        if self.window is not None and self.window < num_frames:
-            idx = torch.arange(num_frames, device=x.device)
+        fs = current_frame_shard()
+        frames = fs.frames if fs is not None and fs.sharded else num_frames
+        if self.window is not None and self.window < frames:
+            idx = torch.arange(frames, device=x.device)
             attn_mask = (idx[:, None] - idx[None, :]).abs() <= self.window // 2
         for i, block in enumerate(self.transformer_blocks):
             x = block(x, attn1_qk_edit=attn1_qk_edit if i == 0 else None, attn_mask=attn_mask,
@@ -400,6 +485,21 @@ class TransformerTemporalModel(nn.Module):
         else:
             x = x.reshape(b, h, w, num_frames, c).permute(0, 3, 1, 2, 4).reshape(bf, h, w, c)
         return x + hidden_states
+
+
+def effective_natural_layout(natural: bool, context_parallel: Optional[str]) -> bool:
+    """The temporal layout a transformer runs: context parallelism is
+    implemented for the [B*H*W, F, C] token layout, so it overrides the
+    natural layout (exact, the same function), with a warning, as in the
+    JAX package."""
+    if natural and context_parallel is not None:
+        import warnings
+
+        warnings.warn(f"context_parallel={context_parallel!r} overrides temporal_natural_layout: "
+                      "ring / Ulysses attention runs in the [B*H*W, F, C] token layout "
+                      "(exact, same math)", stacklevel=2)
+        return False
+    return natural
 
 
 class ResnetBlock2D(nn.Module):
@@ -441,7 +541,11 @@ class TemporalConvLayer(nn.Module):
     """diffusers TemporalConvLayer: four (GroupNorm -> silu -> Conv3d
     (3,1,1)) stages and a residual; conv4 starts at zero, so a fresh layer
     is the identity.  Keys convN.0 (norm) and convN.2 (conv), the layout
-    the JAX package's key map expects.  pnp_edit acts after the residual."""
+    the JAX package's key map expects.  pnp_edit acts after the residual.
+    With this rank's frames of a sharded frame shard, the layer all-gathers
+    the frames over "seq", runs on all of them (the (3,1,1) convs need the
+    neighbours, the norms all frames) and keeps its own: every conv
+    implementation, int8 included, then sees the single-device input."""
 
     def __init__(self, in_dim: int, out_dim: Optional[int] = None, groups: int = 32):
         super().__init__()
@@ -455,7 +559,14 @@ class TemporalConvLayer(nn.Module):
                 pnp_edit: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
         bf, hh, ww, c = x.shape
         x5 = x.reshape(bf // num_frames, num_frames, hh, ww, c)
-        h = self.conv4(self.conv3(self.conv2(self.conv1(x5))))
+        fs = current_frame_shard()
+        if fs is not None and fs.sharded:
+            x_all = coll.all_gather(x5, fs.mesh, SEQ_AXIS, dim=1)
+            with frame_shard(None):
+                h = self.conv4(self.conv3(self.conv2(self.conv1(x_all))))
+            h = h[:, fs.offset:fs.offset + fs.local]
+        else:
+            h = self.conv4(self.conv3(self.conv2(self.conv1(x5))))
         h = (x5 + h).reshape(bf, hh, ww, c)
         if pnp_edit is not None:
             h = pnp_edit(h)

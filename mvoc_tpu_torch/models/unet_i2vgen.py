@@ -13,6 +13,17 @@ being a plain dict site_id -> tensor or (q, k) of the pre-composited S or
 one branch's term of it (the flax package sows the same values into a
 mutable collection).
 
+Device mesh (parallel/mesh.py; `I2VGenXLPipeline.enable_mesh` sets it): with
+`config.attn_mesh` larger than one rank, the forward takes whole (replicated)
+inputs on every rank, runs this rank's frames of the "seq" axis when the
+frame count divides it (else every frame, on every rank), and all-gathers
+the predicted noise, so every rank returns the full result.  The frame-0
+context, the temporal layers and the PnP masks see global frames; what the
+forward returns besides the noise (PnP features, the encoder cache, the PAB
+dict) stays this rank's block, and only a forward on the same mesh and frame
+count reads it back.  `config.temporal_cp` ("ring" / "ulysses") runs the
+temporal attention as context parallelism over "seq".
+
 Profiling: each top-level child of the forward runs inside a
 `torch.profiler.record_function("I2VGenXLUNet/<child>")` scope (`conv_in`,
 `down_blocks.0`, `mid_block`, `up_blocks.3`, ...), which
@@ -32,6 +43,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from mvoc_tpu_torch import pnp as pnp_lib
+from mvoc_tpu_torch.parallel import mesh as pm
 from mvoc_tpu_torch.models.layers import (
     Attention,
     Conv2d,
@@ -67,6 +79,13 @@ class UNetConfig:
     ff_chunk_rows: int = 32768
     temporal_natural_layout: bool = False
     site_map: Optional[Any] = None  # pnp.SiteMap; None = I2VGEN_SITES
+    # context parallelism of the temporal attention over the mesh's "seq"
+    # axis: "ring" or "ulysses" (ops/ring_attention); it overrides the
+    # natural layout (layers.effective_natural_layout)
+    temporal_cp: Optional[str] = None
+    # the active device mesh (parallel/mesh.Mesh; pipeline.enable_mesh sets
+    # it): the forward then runs each rank on its frames of "seq"
+    attn_mesh: Optional[Any] = None
 
     @property
     def sites(self) -> pnp_lib.SiteMap:
@@ -387,7 +406,7 @@ class ImageLatentsTemporalEncoder(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, heads, head_dim or dim)
+        self.attn1 = Attention(dim, heads, head_dim or dim, temporal=True)
         self.ff = FeedForward(dim, inner_dim=dim * 4, activation="gelu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -454,6 +473,23 @@ class I2VGenXLUNet(nn.Module):
                                             block_index=i))
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch0, eps=cfg.norm_eps)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        if cfg.temporal_cp is not None:
+            self.set_parallel(cfg.attn_mesh, cfg.temporal_cp)
+
+    def set_parallel(self, mesh, temporal_cp: Optional[str] = None) -> None:
+        """Thread a mesh (None: none) and the temporal context parallelism
+        into the config and every temporal block, in place (the JAX package
+        rebuilds its stateless modules from the new config)."""
+        if temporal_cp not in (None, "ring", "ulysses"):
+            raise ValueError(f"context_parallel {temporal_cp!r}: 'ring' or 'ulysses'")
+        self.config = dataclasses.replace(self.config, attn_mesh=mesh, temporal_cp=temporal_cp)
+        natural = None
+        for m in self.modules():
+            if isinstance(m, TransformerTemporalModel):
+                m.set_context_parallel(temporal_cp)
+                natural = m.natural_layout
+        for blk in self.up_blocks:
+            blk.natural = natural if natural is not None else blk.natural
 
     @property
     def dtype(self) -> torch.dtype:
@@ -500,6 +536,38 @@ class I2VGenXLUNet(nn.Module):
                 cached_encoder: Optional[tuple] = None, return_encoder: bool = False,
                 encoder_reuse_depth: Optional[int] = None, pab_cache: Optional[dict] = None,
                 pab_capture: bool = False):
+        """See _forward; on a mesh, this rank's frames in and all frames out."""
+        kw = dict(pnp=pnp, pnp_capture=pnp_capture, multi_frame_guidance=multi_frame_guidance,
+                  freeu=freeu, cached_encoder=cached_encoder, return_encoder=return_encoder,
+                  encoder_reuse_depth=encoder_reuse_depth, pab_cache=pab_cache,
+                  pab_capture=pab_capture)
+        mesh = self.config.attn_mesh
+        if mesh is None or mesh.size == 1:
+            return self._forward(sample, timestep, fps, image_latents_first, image_latents,
+                                 image_embeddings, encoder_hidden_states, **kw)
+        f, seq = sample.shape[1], mesh.size_of(pm.SEQ_AXIS)
+        fs = pm.FrameShard(mesh, f, seq > 1 and f % seq == 0)
+        if fs.sharded:
+            lo, hi = fs.offset, fs.offset + fs.local
+            sample, image_latents_first = sample[:, lo:hi], image_latents_first[:, lo:hi]
+            if multi_frame_guidance:  # every frame's context, else frame 0's (global)
+                image_latents, image_embeddings = image_latents[:, lo:hi], image_embeddings[:, lo:hi]
+            if pnp is not None:
+                kw["pnp"] = pnp_lib.frame_slice(pnp, lo, hi)
+        with pm.frame_shard(fs):
+            res = self._forward(sample, timestep, fps, image_latents_first, image_latents,
+                                image_embeddings, encoder_hidden_states, **kw)
+        out = res[0] if isinstance(res, tuple) else res
+        out = pm.gather_video(out, mesh, f, frame_axis=1)
+        return (out,) + res[1:] if isinstance(res, tuple) else out
+
+    def _forward(self, sample, timestep, fps, image_latents_first, image_latents,
+                 image_embeddings, encoder_hidden_states,
+                 pnp: Optional[pnp_lib.PnPState] = None, pnp_capture: bool = False,
+                 multi_frame_guidance: bool = False, freeu: Optional[FreeUConfig] = None,
+                 cached_encoder: Optional[tuple] = None, return_encoder: bool = False,
+                 encoder_reuse_depth: Optional[int] = None, pab_cache: Optional[dict] = None,
+                 pab_capture: bool = False):
         """The predicted noise [B, F, H, W, C_out]; with pnp_capture,
         return_encoder or pab_capture a tuple (noise, then in this order the
         captured PnP features, the encoder cache, the PAB dict).

@@ -14,6 +14,10 @@ On a CUDA tensor the wrapper launches the kernel or raises: there is no
 fallback to the plain version, and nothing here calls
 `scaled_dot_product_attention` or cuDNN attention.
 
+On a device mesh (parallel/mesh.py), `sharded_flash_attention` and
+`sharded_frame_attention` launch the same kernels on each rank's block
+(the counterparts of the JAX package's shard_map wrappers).
+
 Dropped from the TPU kernels (TPU-only tuning, nothing to carry over):
 `FLASH_MIN_SEQ` (the TPU left sequences under 1024 to XLA; here every
 unmasked call takes K1 and every frame-axis call K2, so the plain versions
@@ -179,7 +183,7 @@ def _check_bias_rows(bias: torch.Tensor) -> None:
     """Refuse a bias with a row that keeps no key (every entry <= -1e30 / 2):
     the designs differ there (the wgmma ones divide by l = 0, the SIMT one
     and the plain version give the mean of v).  One reduction and one sync
-    per bias tensor: a bias passed again (sdpa_frames' B launches, a timing
+    per bias tensor: a bias passed again (frame_axis_attention's B launches, a timing
     loop) is not checked again, so a caller must not edit one in place."""
     global _bias_checked
     if _bias_checked is not None and _bias_checked() is bias:
@@ -316,9 +320,158 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
                     mask: Optional[torch.Tensor] = None, layout: str = "natural") -> torch.Tensor:
     """K2.  Self-attention across the frame axis, per pixel and head.
 
-    layout "natural": q/k/v [B, F, S, H*D] (frame-major, sdpa_frames);
+    layout "natural": q/k/v [B, F, S, H*D] (frame-major, frame_axis_attention);
     layout "sf":      q/k/v [S, F, H*D]    (pixel-major tokens, sdpa).
     mask: optional [F, F] boolean band (windowed temporal attention)."""
     if q.is_cuda:
         return _frame_cuda(q, k, v, heads, mask, layout)
     return frame_attention_plain(q, k, v, heads, mask, layout)
+
+
+# ---------------------------------------------------------------------------
+# Frame-axis attention of either length: K2 up to 64 frames, K1 with the band
+# as its bias beyond
+# ---------------------------------------------------------------------------
+
+
+def frame_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                         mask: Optional[torch.Tensor] = None,
+                         layout: str = "natural") -> torch.Tensor:
+    """Attention across the frame axis, per pixel and head, in either layout
+    (natural [B, F, S, H*D], sf [S, F, H*D]): K2 up to FRAME_MAX_FRAMES
+    frames.  Beyond, K1 takes the call with the band mask (if any) as its
+    bias, reading each [S, H, F, D] view in place: K1 reads [batch, head,
+    seq, D] through one stride each, and the natural layout's batch is two
+    axes (B, and the pixel S), so it launches once per entry of B (B <= N+3
+    branches) instead of re-laying out q, k and v; only the output is laid
+    back, by one copy."""
+    qn = _as_natural(q, layout)
+    b, f, s, inner = qn.shape
+    if f <= FRAME_MAX_FRAMES:
+        return frame_attention(q, k, v, heads, mask=mask, layout=layout)
+    d = inner // heads
+    bias = None if mask is None else band_bias(mask).to(q.device)
+    kn, vn = _as_natural(k, layout), _as_natural(v, layout)
+
+    def view(t, i):  # entry i as [S, H, F, D]
+        return t[i].unflatten(-1, (heads, d)).permute(1, 2, 0, 3)
+
+    outs = [flash_attention(view(qn, i), view(kn, i), view(vn, i), bias=bias) for i in range(b)]
+    out = torch.stack([o.permute(2, 0, 1, 3) for o in outs]).reshape(b, f, s, inner)
+    return out[0].transpose(0, 1).contiguous() if layout == "sf" else out
+
+
+# ---------------------------------------------------------------------------
+# The kernels on a mesh's local blocks (counterpart of the JAX package's
+# shard_map wrappers, mvoc_tpu/ops/attention.py:330-443)
+# ---------------------------------------------------------------------------
+#
+# K1 and K2 are embarrassingly parallel along some axes: spatial flash over
+# (batch, head, query rows), frame attention over pixels.  Each wrapper
+# gives every rank its block along those axes, launches the kernel on it,
+# and gathers the blocks back, so every rank returns the full result, as the
+# JAX wrappers' out_specs do once GSPMD reshards them.  `axes` names the mesh
+# axes over which the inputs are replicated and the work may split (the UNet
+# leaves out "model" where tensor parallelism already split the heads).
+
+
+def assign_mesh_axes(mesh, dim_sizes: list[int], axes=None) -> list[tuple[str, ...]]:
+    """Greedily assign mesh axes (in mesh order, those of size > 1 named in
+    `axes`, all by default) to tensor dims in priority order: each axis goes
+    to the FIRST dim it divides given what that dim already holds; an axis
+    that divides nothing is left unused (the kernel then runs replicated
+    over it).  Returns per-dim axis-name tuples (JAX's _assign_mesh_axes)."""
+    assigned: list[list[str]] = [[] for _ in dim_sizes]
+    used = [1] * len(dim_sizes)
+    for name in mesh.axis_names:
+        size = mesh.shape[name]
+        if size <= 1 or (axes is not None and name not in axes):
+            continue
+        for i, dim in enumerate(dim_sizes):
+            if dim % (used[i] * size) == 0:
+                assigned[i].append(name)
+                used[i] *= size
+                break
+    return [tuple(a) for a in assigned]
+
+
+def _block(t: torch.Tensor, mesh, dim: int, names: tuple[str, ...]) -> torch.Tensor:
+    """This rank's block of t along dim, split over `names` (major first)."""
+    for name in names:
+        t = t.chunk(mesh.shape[name], dim=dim)[mesh.rank_of(name)]
+    return t
+
+
+def _unblock(t: torch.Tensor, mesh, dim: int, names: tuple[str, ...]) -> torch.Tensor:
+    from mvoc_tpu_torch.parallel import collectives as coll
+
+    for name in reversed(names):  # minor axis first
+        t = coll.all_gather(t, mesh, name, dim)
+    return t
+
+
+def sharded_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                            bias: Optional[torch.Tensor] = None, axes=None) -> torch.Tensor:
+    """K1 with (batch, heads, then query rows) split over the mesh: q [B, H,
+    Sq, D], k/v [B, H, Sk, D] and bias [Sq, Sk] replicated over `axes`;
+    each rank launches K1 on its block (streaming the FULL K/V when the
+    query rows are split) and the blocks are gathered back.  Exact: every
+    (b, h) row's attention is independent."""
+    b, h, sq, _ = q.shape
+    b_ax, h_ax, q_ax = assign_mesh_axes(mesh, [b, h, sq], axes)
+
+    def kv(t):
+        return _block(_block(t, mesh, 0, b_ax), mesh, 1, h_ax)
+
+    ql = _block(kv(q), mesh, 2, q_ax)
+    bl = None if bias is None else _block(bias, mesh, 0, q_ax).contiguous()
+    out = flash_attention(ql, kv(k), kv(v), bias=bl)
+    return _unblock(_unblock(_unblock(out, mesh, 2, q_ax), mesh, 1, h_ax), mesh, 0, b_ax)
+
+
+def _frame_blocks(q, k, v, heads, mesh, mask, layout, axes):
+    """frame_axis_attention with the pixel axis (then, natural, the batch)
+    split over `axes`; every frame stays on every rank."""
+    if layout == "sf":
+        (s_ax,) = assign_mesh_axes(mesh, [q.shape[0]], axes)
+        b_ax, s_dim = (), 0
+    else:
+        s_ax, b_ax = assign_mesh_axes(mesh, [q.shape[2], q.shape[0]], axes)
+        s_dim = 2
+
+    def blk(t):
+        return _block(_block(t, mesh, s_dim, s_ax), mesh, 0, b_ax)
+
+    out = frame_axis_attention(blk(q), blk(k), blk(v), heads, mask=mask, layout=layout)
+    return _unblock(_unblock(out, mesh, 0, b_ax), mesh, s_dim, s_ax)
+
+
+def sharded_frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                            mesh, mask: Optional[torch.Tensor] = None, layout: str = "natural",
+                            frames_sharded: bool = False, axes=None) -> torch.Tensor:
+    """Frame (temporal) attention with the PIXEL axis split over the mesh:
+    q/k/v natural [B, F, S, H*D] or sf [S, F, H*D]; mask the [F, F] band
+    over all frames.
+
+    frames_sharded: q/k/v hold this rank's frames of the "seq" axis (the
+    UNet's layout); one all-to-all per tensor reshards them to all frames of
+    this rank's pixels, the kernel (K2, or K1 with the band beyond 64
+    frames) runs there, with the pixels split further over the other free
+    axes, and one all-to-all lays the output back to this rank's frames.
+    Otherwise q/k/v are replicated over `axes` and the output is gathered
+    back whole on every rank."""
+    seq = mesh.shape["seq"]
+    if not frames_sharded or seq == 1:
+        return _frame_blocks(q, k, v, heads, mesh, mask, layout, axes)
+    from mvoc_tpu_torch.parallel import collectives as coll
+
+    f_dim, s_dim = 1, (0 if layout == "sf" else 2)
+    rest = tuple(a for a in (axes or mesh.axis_names) if a != "seq")
+    if q.shape[s_dim] % seq:  # the pixels do not divide: gather the frames instead
+        full = [coll.all_gather(t, mesh, "seq", f_dim) for t in (q, k, v)]
+        out = _frame_blocks(*full, heads, mesh, mask, layout, rest)
+        return out.chunk(seq, dim=f_dim)[mesh.rank_of("seq")]
+    qp, kp, vp = (coll.all_to_all(t, mesh, "seq", split_dim=s_dim, concat_dim=f_dim)
+                  for t in (q, k, v))
+    out = _frame_blocks(qp, kp, vp, heads, mesh, mask, layout, rest)
+    return coll.all_to_all(out, mesh, "seq", split_dim=f_dim, concat_dim=s_dim)

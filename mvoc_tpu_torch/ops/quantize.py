@@ -67,9 +67,11 @@ class QuantizedTensor:
     scale: torch.Tensor  # fp32
 
 
-def _symmetric(x: torch.Tensor, reduce_axes: Sequence[int]):
+def _symmetric(x: torch.Tensor, reduce_axes: Sequence[int], amax_hook=None):
     xf = x.float()
     amax = xf.abs().amax(dim=tuple(reduce_axes), keepdim=True)
+    if amax_hook is not None:  # a row split over ranks: the max over all of them
+        amax = amax_hook(amax)
     # amax / 127 as XLA compiles it inside jit (every JAX caller runs jitted):
     # a multiply by the fp32 reciprocal, which differs from the division in
     # the last bit for some amax.  x / scale stays a true division there too.
@@ -85,11 +87,12 @@ def quantize_tensor(w: torch.Tensor, channel_axes: Sequence[int]) -> QuantizedTe
     return QuantizedTensor(*_symmetric(w, reduce_axes))
 
 
-def _quantize_activation(x: torch.Tensor, reduce_axes: Sequence[int]):
+def _quantize_activation(x: torch.Tensor, reduce_axes: Sequence[int], amax_hook=None):
     """Dynamic symmetric int8 quantization; `reduce_axes` share one scale
-    (the contraction axis for per-row scales, all but axis 0 per sample).
-    Returns (int8 tensor, fp32 scale with keepdims)."""
-    return _symmetric(x, reduce_axes)
+    (the contraction axis for per-row scales, all but axis 0 per sample;
+    amax_hook(amax) gives the amax over a contraction axis split across
+    ranks).  Returns (int8 tensor, fp32 scale with keepdims)."""
+    return _symmetric(x, reduce_axes, amax_hook)
 
 
 def _s8_gemm(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
@@ -210,6 +213,23 @@ class QuantLinear(_Quantized):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = QuantizedTensor(self.weight.t(), self.weight_scale)  # [K, N] view
         return self._add_bias(int8_matmul(x, kernel, out_dtype=x.dtype))
+
+    def partial_product(self, x: torch.Tensor, tp) -> torch.Tensor:
+        """This rank's fp32 term of a row-split layer (parallel/mesh.
+        shard_params kept columns K_r of the weight; x holds the same K_r):
+        each row's activation scale from its amax over ALL of K (one max
+        all-reduce over "model"), so every rank quantizes its slice as the
+        single-rank layer does, then K3 on the slice, dequantised in fp32,
+        no bias.  Summed over the ranks this is the single-rank product up
+        to fp32 rounding of the sum (layers.row_parallel)."""
+        from mvoc_tpu_torch.parallel import collectives as coll
+
+        xq, x_scale = _quantize_activation(
+            x, (x.ndim - 1,), amax_hook=lambda a: coll.all_reduce(a, tp, "model", op="max"))
+        m = math.prod(x.shape[:-1])
+        out = _s8_gemm(xq.reshape(m, x.shape[-1]), self.weight.t(), x_scale.reshape(m),
+                       self.weight_scale, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], self.weight.shape[0])
 
 
 class QuantConv(_Quantized):

@@ -2,7 +2,8 @@
 (counterpart of mvoc_tpu/pipeline/i2vgen.py, cut to the slices ported so
 far: from_pretrained, invert and invert_batch, sample (the reconstruction
 path), generate_background, sample_composite and sample_composite_batch,
-the int8 mode (enable_int8) and the tiled VAE decode (enable_vae_tiling)).
+the int8 mode (enable_int8), the tiled VAE decode (enable_vae_tiling) and
+the device mesh (enable_mesh)).
 
 Every extension keyword of the JAX package runs here at every value it
 accepts: the reuse and broadcast modes (encoder_reuse_interval and
@@ -14,6 +15,13 @@ The modules hold their own weights.  Every random draw of an entry point
 comes from one explicit `torch.Generator` seeded from `seed`, on the
 pipeline's device.  The pipeline runs on CUDA unless `device="cpu"` is
 passed; it raises when CUDA is asked for and absent.
+
+On a mesh (enable_mesh: one process per rank, parallel/mesh.py) every rank
+calls the same entry point with the same arguments and returns the same
+full result: the UNet runs each rank on its frames and its tensor-parallel
+share, the VAE encode and decode split the frames over "seq", the batch
+entry points split their J entries over "job", and every draw is the full
+tensor from the entry point's generator, each rank taking its slice.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from mvoc_tpu_torch.models.unet_i2vgen import FreeUConfig, I2VGenXLUNet
 from mvoc_tpu_torch.models.vae import AutoencoderKL, sample_latents, tiled_decode
 from mvoc_tpu_torch.ops import quantize
 from mvoc_tpu_torch.ops.ddim import DDIM, SchedulerConfig, inversion_timesteps, sampling_timesteps
+from mvoc_tpu_torch.parallel import mesh as pm
 from mvoc_tpu_torch.pipeline import core
 from mvoc_tpu_torch.utils.device import resolve_device
 
@@ -54,6 +63,21 @@ def _composite_core_kwargs(kwargs: dict, random_noise_ratio: float,
                 capture_reuse_interval=int(kwargs.get("capture_reuse_interval", 1)),
                 capture_reuse_deep=bool(kwargs.get("capture_reuse_deep", False)),
                 step_callback=step_callback)
+
+
+def _take_entries(tree, j: slice):
+    """Entries j of every leaf (leading axis J) of _prepare_composite_batch's
+    output: tensors and arrays, in tuples, dicts and dataclasses."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(_take_entries(t, j) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _take_entries(v, j) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(*(_take_entries(getattr(tree, f.name), j)
+                            for f in dataclasses.fields(tree)))
+    return tree[j]
 
 
 class I2VGenXLPipeline:
@@ -78,6 +102,7 @@ class I2VGenXLPipeline:
         self.clip_image_size = image_encoder.config.image_size
         self.vae_tiling: Optional[tuple[int, int]] = None  # set by enable_vae_tiling
         self.freeu: Optional[FreeUConfig] = None  # set by enable_freeu
+        self.mesh: Optional[pm.Mesh] = None  # set by enable_mesh
 
     @staticmethod
     def from_pretrained(checkpoint_dir: str, dtype: torch.dtype = torch.bfloat16,
@@ -101,8 +126,14 @@ class I2VGenXLPipeline:
         mode: the int8 GEMMs run on K3.  The VAE and CLIP towers keep their
         dtype.  Runs once, before the step loops; quantizing an
         already-quantized layer is a no-op (it is no longer a float layer).
-        The JAX package's check against a device mesh waits for the
-        multi-GPU port."""
+        Call it before enable_mesh, whose tensor parallelism splits the int8
+        layers as it splits the float ones; after a mesh of more than one
+        rank it raises, as in the JAX package."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                "call enable_int8 BEFORE enable_mesh: parallel.mesh.shard_params splits "
+                "QuantLinear layers with their tensor-parallel shares, but re-quantizing "
+                "already-sharded params is not supported")
         if mode not in ("full", "mixed"):
             raise ValueError(f"enable_int8 mode {mode!r}: 'full' or 'mixed'")
         pred = predicate if predicate is not None else (
@@ -110,6 +141,60 @@ class I2VGenXLPipeline:
         n = len(quantize.quantize_unet_(self.unet, pred))
         logger.info("UNet quantized to int8 (w8a8, %s selection): %d layers", mode, n)
         return self
+
+    def enable_mesh(self, n_devices: Optional[int] = None, seq: Optional[int] = None,
+                    job: int = 1) -> "I2VGenXLPipeline":
+        """Run the pipeline over a (job, seq, model) mesh of n_devices ranks
+        (the world size by default; one process per rank, every rank making
+        the same calls).  Under a launcher (torchrun) the default process
+        group is initialised here: NCCL on CUDA, gloo on the CPU; a process
+        group already initialised keeps its backend.  The UNet's attention, MLP
+        and timestep layers are split over "model" (parallel/mesh.
+        shard_params) and its forward runs each rank on its frames of
+        "seq".  One rank is the no-op 1x1x1 mesh.  Ranks outside a mesh
+        smaller than the world get `mesh.member` False and must not call
+        the entry points."""
+        if self.mesh is not None:
+            self.disable_mesh()
+        if pm.launched():
+            pm.init_distributed(self.device)
+        mesh = pm.make_mesh(n_devices, seq=seq, job=job, device=self.device)
+        self.mesh = mesh
+        if mesh.size > 1 and mesh.member:
+            split = pm.shard_params(self.unet, mesh)
+            self.unet.set_parallel(mesh, self.unet.config.temporal_cp)
+            logger.info("mesh enabled: %s, %d tensor-parallel units", mesh, len(split))
+        return self
+
+    def disable_mesh(self) -> "I2VGenXLPipeline":
+        """Back to one device: the split layers gathered whole again."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is not None and mesh.size > 1 and mesh.member:
+            pm.unshard_params(self.unet, mesh)
+            self.unet.set_parallel(None, self.unet.config.temporal_cp)
+        return self
+
+    def _seq_mesh(self, frames: int) -> Optional[pm.Mesh]:
+        """The mesh when `frames` split over its "seq" axis, else None."""
+        m = self.mesh
+        if m is None or m.size == 1 or m.size_of(pm.SEQ_AXIS) == 1:
+            return None
+        return m if frames % m.size_of(pm.SEQ_AXIS) == 0 else None
+
+    def _sync(self) -> None:
+        """All ranks of the mesh meet here (rank 0 wrote what they read next)."""
+        if self.mesh is not None and self.mesh.size > 1:
+            from mvoc_tpu_torch.parallel import collectives as coll
+
+            coll.barrier(self.mesh)
+
+    def _job_gather(self, x: torch.Tensor, j: int, dim: int) -> torch.Tensor:
+        """The J entries back from this job slice's share along dim."""
+        if x.shape[dim] == j:
+            return x
+        from mvoc_tpu_torch.parallel import collectives as coll
+
+        return coll.all_gather(x, self.mesh, pm.JOB_AXIS, dim)
 
     def enable_freeu(self, s1: float, s2: float, b1: float, b2: float) -> None:
         """FreeU up-block re-weighting on every UNet call of every entry point
@@ -196,10 +281,16 @@ class I2VGenXLPipeline:
         """[F, h, w, C] scaled latents, sampled with noise from `generator`."""
         resized = [media.center_crop_wide(f, (width, height)) for f in frames]
         px = torch.as_tensor(media.pil_to_neg1_1(resized), device=self.device).to(self.dtype)
+        mesh = self._seq_mesh(px.shape[0])
+        if mesh is not None:  # frame-parallel: this rank's frames, then all-gathered
+            px = pm.shard_video(px, mesh, frame_axis=0)
         mean, logvar = self.vae.encode(px)
-        noise = torch.randn(mean.shape, generator=generator, device=self.device,
-                            dtype=torch.float32)
-        return sample_latents(mean, logvar, noise) * self.vae_scaling
+        shape = (len(frames),) + tuple(mean.shape[1:])
+        noise = torch.randn(shape, generator=generator, device=self.device, dtype=torch.float32)
+        if mesh is not None:
+            noise = pm.shard_video(noise, mesh, frame_axis=0)
+        z = sample_latents(mean, logvar, noise) * self.vae_scaling
+        return z if mesh is None else pm.gather_video(z, mesh, len(frames), frame_axis=0)
 
     def encode_first_frame_latents(self, image: Image.Image, height: int, width: int,
                                    num_frames: int, generator: torch.Generator) -> torch.Tensor:
@@ -216,6 +307,10 @@ class I2VGenXLPipeline:
         decodes one at a time); enable_vae_tiling also bounds the spatial
         footprint of each call (tiled_decode inside each chunk)."""
         z = latents.to(self.device) / self.vae_scaling
+        frames = z.shape[0]
+        mesh = self._seq_mesh(frames)
+        if mesh is not None:  # frame-parallel: this rank's frames, then all-gathered
+            z = pm.shard_video(z, mesh, frame_axis=0)
         step = decode_chunk_size or z.shape[0]
 
         def dec(zz):
@@ -224,6 +319,8 @@ class I2VGenXLPipeline:
             return tiled_decode(self.vae.decode, zz, *self.vae_tiling)
 
         img = torch.cat([dec(z[i:i + step]) for i in range(0, z.shape[0], step)])
+        if mesh is not None:
+            img = pm.gather_video(img, mesh, frames, frame_axis=0)
         return (img.float() / 2 + 0.5).clamp(0.0, 1.0).cpu().numpy()
 
     def enable_vae_tiling(self, tile_latent: int = 64, overlap_latent: int = 8) -> None:
@@ -323,8 +420,10 @@ class I2VGenXLPipeline:
                         num_frames=num_frames, height=height, width=width, prompt=prompt,
                         seed=seed, target_fps=target_fps,
                         encoder_reuse_interval=encoder_reuse_interval)
-            TrajectoryStore(output_dir).save(ts, trajectory, meta=meta)
-            logger.info("saved trajectory (%d steps) to %s", len(ts), output_dir)
+            if pm.is_writer(self.mesh):
+                TrajectoryStore(output_dir).save(ts, trajectory, meta=meta)
+                logger.info("saved trajectory (%d steps) to %s", len(ts), output_dir)
+            self._sync()
         return ts, trajectory
 
     def invert_batch(self, videos: Sequence[Sequence[Image.Image]],
@@ -362,19 +461,22 @@ class I2VGenXLPipeline:
         cond = self._stack_cond(pe.expand((len(videos),) + tuple(pe.shape[1:])), img_lat,
                                 img_lat, torch.stack(img_embs), target_fps)
         ts = inversion_timesteps(self.scheduler_config, num_inference_steps)
+        j = pm.job_slice(len(videos), self.mesh)  # this job slice's videos
         traj = core.ddim_inversion_batch_core(
-            self._unet_apply(), self.ddim, torch.stack(x0s).float(), cond, ts,
-            num_inference_steps, encoder_reuse_interval=int(encoder_reuse_interval),
+            self._unet_apply(), self.ddim, torch.stack(x0s)[j].float(), cond.slice(j.start, j.stop),
+            ts, num_inference_steps, encoder_reuse_interval=int(encoder_reuse_interval),
             deep_reuse=bool(deep_reuse), step_callback=step_callback)
-        trajectory = traj.float().cpu().numpy()
+        trajectory = self._job_gather(traj.float(), len(videos), dim=1).cpu().numpy()
         for j, out_dir in enumerate(output_dirs or []):
-            if out_dir is None:
+            if out_dir is None or not pm.is_writer(self.mesh):
                 continue
             meta = dict(n_steps=num_inference_steps, guidance_scale=1.0, num_frames=num_frames,
                         height=height, width=width, prompt=prompt, seed=seed,
                         target_fps=target_fps, encoder_reuse_interval=encoder_reuse_interval)
             TrajectoryStore(out_dir).save(ts, trajectory[:, j], meta=meta)
             logger.info("saved trajectory (%d steps) to %s", len(ts), out_dir)
+        if output_dirs:
+            self._sync()
         return ts, trajectory
 
     # -- entry point D: plain sampling / reconstruction -------------------------
@@ -608,11 +710,14 @@ class I2VGenXLPipeline:
         if not decode."""
         static = _composite_core_kwargs(shared_kwargs, random_noise_ratio,
                                         obj_random_noise_fusion, step_callback)
+        prepared = self._prepare_composite_batch(entries, **shared_kwargs)
+        j = pm.job_slice(len(entries), self.mesh)  # this job slice's entries
         (init_latents, cond, sched, masks_soft, pyr_bin, pyr_soft,
-         capture_weights) = self._prepare_composite_batch(entries, **shared_kwargs)
+         capture_weights) = _take_entries(prepared, j)
         final = core.pnp_composite_batch_core(
             self._composite_unet(static, shared_kwargs), self.ddim, init_latents, cond, sched,
             masks_soft, pyr_bin, pyr_soft, capture_weights=capture_weights, **static)
+        final = self._job_gather(final, len(entries), dim=0)
         if not decode:
             return final
         return [self.decode_latents(f, decode_chunk_size=decode_chunk_size) for f in final]

@@ -144,6 +144,20 @@ class PnPState:
         return m if m.ndim == 5 else m[None]
 
 
+def frame_slice(state: PnPState, lo: int, hi: int) -> PnPState:
+    """The state a UNet forward on frames lo..hi-1 of a mesh's frame shard
+    reads: its masks and capture weights cut to those frames (axis -3 of
+    [.., F, h, w]); `features` come from forwards on the same shard and
+    are kept."""
+    def cut(pyr):
+        return None if pyr is None else {res: m[..., lo:hi, :, :] for res, m in pyr.items()}
+
+    weights = None if state.capture_weight is None else {
+        kind: cut(pyr) for kind, pyr in state.capture_weight.items()}
+    return dataclasses.replace(state, masks=cut(state.masks), masks_soft=cut(state.masks_soft),
+                               capture_weight=weights)
+
+
 def build_mask_pyramid(masks: np.ndarray, resolutions: list[tuple[int, int]]
                        ) -> Dict[Tuple[int, int], np.ndarray]:
     """Nearest-resize [N, F, H, W] masks to every injection resolution

@@ -269,8 +269,8 @@ class ActivationTape:
     def active(self):
         orig = quantize._quantize_activation
 
-        def taped(x, reduce_axes):
-            q, s = orig(x, reduce_axes)
+        def taped(x, reduce_axes, amax_hook=None):
+            q, s = orig(x, reduce_axes, amax_hook)
             if self.replaying:
                 q, s = self._replay(q, s)
             else:

@@ -48,6 +48,13 @@ limit, so this script runs the JAX package once and stores, as numpy:
   * the layer sets `quantize_params` selects at the full I2VGen-XL geometry
     under `default_unet_predicate` and `mixed_unet_predicate` (from
     `jax.eval_shape`, which takes ~10 s here);
+  * the device mesh, on JAX's 8-device CPU mesh (XLA_FLAGS
+    --xla_force_host_platform_device_count=8, set here): the tiny UNet
+    under (seq 4, model 2) in both temporal layouts on 4-frame inputs, the
+    64-frame UNet with `temporal_window: 8` and ring context parallelism of
+    tests/test_parallel.py (seq 4), and one fused composite step of the
+    composite case under enable_mesh(8, seq=2) (2 frames over seq 2,
+    model 4);
   * a digest of the sources these outputs come from
     (tests/torch_support.py: GOLDEN_SOURCES).
 
@@ -58,6 +65,10 @@ that of the sources on disk.  Rerun after changing the JAX package or these
 cases:
 
     JAX_PLATFORMS=cpu python scripts/torch_parity_goldens.py
+
+`--mesh-only` recomputes only the mesh cases from the params and inputs
+already in the file (a few minutes) and rewrites it with the new digest;
+the other cases depend on none of the mesh code.
 """
 
 from __future__ import annotations
@@ -72,7 +83,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from torch_support import GOLDENS as OUT  # noqa: E402
-from torch_support import golden_sources_digest, noisy_params  # noqa: E402
+from torch_support import golden_sources_digest, nest, noisy_params  # noqa: E402
+
+# the mesh cases need JAX's 8 virtual CPU devices, fixed before JAX starts
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 F, HW, LAT, D = 2, 16, 8, 16
 N_OBJ = 2
@@ -97,16 +113,99 @@ EXTRAS_FREEU = dict(s1=0.9, s2=0.2, b1=1.1, b2=1.2)
 QUALITY_COMPOSITE = ("encoder_reuse_k2", "capture_reuse_k2", "capture_reuse_k2_deep", "pab_k2")
 
 
-def unet_inputs(b, seed):
+def unet_inputs(b, seed, f=F):
     r = np.random.default_rng(seed)
 
     def mk(*s):
         return r.standard_normal(s).astype(np.float32)
 
-    return dict(sample=mk(b, F, LAT, LAT, 4), timestep=np.array([981] * b),
-                fps=np.array([8] * b), image_latents_first=mk(b, F, LAT, LAT, 4),
-                image_latents=mk(b, F, LAT, LAT, 4), image_embeddings=mk(b, F, D),
+    return dict(sample=mk(b, f, LAT, LAT, 4), timestep=np.array([981] * b),
+                fps=np.array([8] * b), image_latents_first=mk(b, f, LAT, LAT, 4),
+                image_latents=mk(b, f, LAT, LAT, 4), image_embeddings=mk(b, f, D),
                 encoder_hidden_states=mk(b, 7, D))
+
+
+# the mesh cases: (inputs seed, batch, frames) of the (seq 4, model 2) UNet
+# and of the 64-frame ring UNet (tests/torch_parallel_worker.py draws the same)
+MESH_UNET = (31, 2, 4)
+MESH_RING = (41, 1, 64)
+RING_WINDOW = 8
+
+
+def mesh_cases(out: dict) -> None:
+    """The JAX package on its 8-device CPU mesh, from the params and composite
+    inputs in `out`: adds mesh/* to it."""
+    import jax
+    import jax.numpy as jnp
+
+    from mvoc_tpu.models import clip as jclip
+    from mvoc_tpu.models import vae as jvae
+    from mvoc_tpu.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
+    from mvoc_tpu.ops.ddim import SchedulerConfig
+    from mvoc_tpu.parallel import mesh as pm
+    from mvoc_tpu.pipeline import core
+    from mvoc_tpu.pipeline.i2vgen import I2VGenXLPipeline
+    from mvoc_tpu.utils import testing as jtt
+
+    assert len(jax.devices()) == 8, jax.devices()
+    params = {"params": nest(out, "params")}
+
+    def sharded_inputs(seed, b, f, mesh):
+        x = unet_inputs(b, seed, f)
+        xs = {k: jnp.asarray(v) for k, v in x.items()}
+        for key in ("sample", "image_latents_first", "image_latents"):
+            xs[key] = pm.shard_video(xs[key], mesh)
+        return x, xs
+
+    mesh = pm.make_mesh(8, seq=4)
+    assert dict(mesh.shape) == {"job": 1, "seq": 4, "model": 2}
+    params_s = pm.shard_params(params, mesh)
+    x, xs = sharded_inputs(*MESH_UNET, mesh)
+    for k, v in x.items():
+        out[f"mesh/unet/inputs/{k}"] = v
+    for layout, natural in (("standard", False), ("natural", True)):
+        unet = I2VGenXLUNet(dataclasses.replace(UNetConfig.tiny(), attn_mesh=mesh,
+                                                temporal_natural_layout=natural))
+        out[f"mesh/unet/{layout}_out"] = np.asarray(jax.jit(unet.apply)(params_s, **xs))
+    print("mesh unet: done", flush=True)
+
+    x, xs = sharded_inputs(*MESH_RING, mesh)
+    for k, v in x.items():
+        out[f"mesh/ring/inputs/{k}"] = v
+    unet = I2VGenXLUNet(dataclasses.replace(UNetConfig.tiny(), temporal_window=RING_WINDOW,
+                                            temporal_cp=("ring", mesh)))
+    out["mesh/ring/out"] = np.asarray(jax.jit(unet.apply)(params_s, **xs))
+    print("mesh ring unet: done", flush=True)
+
+    unet = I2VGenXLUNet(UNetConfig.tiny())
+    vae = jvae.AutoencoderKL(jvae.VAEConfig.tiny())
+    text = jclip.CLIPTextModel(jclip.CLIPTextConfig.tiny())
+    vision = jclip.CLIPVisionModelWithProjection(jclip.CLIPVisionConfig.tiny())
+    pipe_params = {k: {"params": nest(out, f"pipe/{k}")}
+                   for k in ("vae", "text_encoder", "image_encoder")}
+    pipe_params["unet"] = params
+    pipe = I2VGenXLPipeline(unet, vae, text, vision, pipe_params, SchedulerConfig(),
+                            tokenizer=jtt.DummyTokenizer(64, 12))
+    pipe.enable_mesh(8, seq=2)
+    sched = core.CompositeSchedule(**{
+        f.name: jnp.asarray(out[f"composite/sched/{f.name}"])[:1]
+        if f.name != "obj_fusion_lat" else jnp.asarray(out[f"composite/sched/{f.name}"])
+        for f in dataclasses.fields(core.CompositeSchedule)})
+    cond = core.UNetConditioning(**{f.name: jnp.asarray(out[f"composite/cond/{f.name}"])
+                                    for f in dataclasses.fields(core.UNetConditioning)})
+
+    def pyramid(name):
+        prefix = f"composite/{name}/"
+        return {tuple(int(n) for n in k[len(prefix):].split("x")): jnp.asarray(v)
+                for k, v in out.items() if k.startswith(prefix)}
+
+    out["mesh/composite/fused_1step_out"] = np.asarray(core.pnp_composite_core(
+        pipe._unet_apply, pipe.ddim, pipe.params["unet"],
+        pipe._shard_video(jnp.asarray(out["composite/init"]), 0), pipe._shard_cond(cond), sched,
+        jnp.asarray(out["composite/masks_soft"]), pyramid("pyr_bin"), pyramid("pyr_soft"),
+        num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
+        two_pass=False))
+    print("mesh composite step: done", flush=True)
 
 
 def masks():
@@ -542,6 +641,7 @@ def main() -> int:
     out["odd/composite/fused_out"] = np.asarray(odd)
     print("odd geometry: done", flush=True)
 
+    mesh_cases(out)
     out["sources_digest"] = np.array(golden_sources_digest())
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
@@ -549,5 +649,20 @@ def main() -> int:
     return 0
 
 
+def mesh_only() -> int:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "float32")
+    sys.path.insert(0, ROOT)
+    with np.load(OUT) as z:
+        out = {k: z[k] for k in z.files if not k.startswith("mesh/")}
+    mesh_cases(out)
+    out["sources_digest"] = np.array(golden_sources_digest())
+    np.savez_compressed(OUT, **out)
+    print(f"wrote {OUT}: {len(out)} arrays, {os.path.getsize(OUT) / 1e6:.2f} MB")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_only() if "--mesh-only" in sys.argv[1:] else main())

@@ -3,6 +3,8 @@ kernels (interpret mode), and frame-axis attention over more than 64 frames
 (K1 with the band as its bias) vs the JAX package's XLA attention.  The
 CUDA kernels vs the plain versions are in test_torch_kernels.py."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -61,8 +63,8 @@ def test_frame_plain_matches_jax_kernel(layout, heads, f, window):
 def test_frame_axis_over_64_frames_matches_jax(fn, f, window):
     """Past K2's 64 frames the port takes K1 (the band as its bias), the JAX
     package XLA attention with finfo.min: the same probabilities, since a
-    band keeps its diagonal.  sdpa: pixel-major [S, F, H*D]; sdpa_frames:
-    frame-major [B, F, S, H*D] with B = 2 (one K1 launch per entry)."""
+    band keeps its diagonal.  sdpa: pixel-major [S, F, H*D]; sdpa_frames
+    (the port's frame_axis_attention, layout "natural"): frame-major [B, F, S, H*D] with B = 2 (one K1 launch per entry)."""
     heads, d, s = 2, 8, 6
     rng = np.random.default_rng(f + (window or 0))
     shape = (s, f, heads * d) if fn == "sdpa" else (2, f, s, heads * d)
@@ -70,8 +72,10 @@ def test_frame_axis_over_64_frames_matches_jax(fn, f, window):
     mask = None if window is None else _band(f, window)
     want = np.asarray(getattr(jl, fn)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
                                       mask=None if mask is None else jnp.asarray(mask)))
-    got = getattr(tl, fn)(*(torch.from_numpy(a) for a in (q, k, v)), heads,
-                          mask=None if mask is None else torch.from_numpy(mask)).numpy()
+    port = tl.sdpa if fn == "sdpa" else functools.partial(tattn.frame_axis_attention,
+                                                          layout="natural")
+    got = port(*(torch.from_numpy(a) for a in (q, k, v)), heads,
+               mask=None if mask is None else torch.from_numpy(mask)).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 

@@ -20,7 +20,10 @@
   directory (the pipeline both CLIs build from the tiny checkpoint),
   --mesh_seq / --mesh_job without a mesh size (passed through, as in JAX),
   and --batch / batch_inversions / batch_composites (argument parity with
-  the JAX CLIs through invert_batch and sample_composite_batch).
+  the JAX CLIs through invert_batch and sample_composite_batch);
+* the device mesh: both CLIs under torchrun on two gloo ranks against the
+  single-process CLIs, and --mesh without a launcher refused, naming
+  torchrun.
 """
 
 import argparse
@@ -445,16 +448,91 @@ def _args(**kw):
 @pytest.mark.parametrize("args,template", [
     ({"mesh": "2"}, {}), ({"mesh": "auto"}, {}), ({}, {"mesh_devices": 4}),
     ({"mesh_seq": 2}, {}), ({"mesh_job": 2}, {})])
-def test_mesh_refused(args, template):
-    """A mesh size stays refused (item 10); --mesh_seq / --mesh_job alone
-    leave the pipeline as it is, as the JAX CLI's apply_mesh does."""
+def test_mesh_refused(args, template, monkeypatch):
+    """Without a launcher a mesh size is refused, naming the torchrun command
+    (the port runs one process per rank; test_cli_under_a_launcher runs
+    one); --mesh_seq / --mesh_job alone leave the pipeline as it is, as the
+    JAX CLI's apply_mesh does."""
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     assert tcommon.apply_mesh("pipe", _args(), tcfg.create({})) == "pipe"
     if "mesh" not in args and "mesh_devices" not in template:
         assert jcommon.apply_mesh("pipe", _args(**args), jcfg.create(template)) == "pipe"
         assert tcommon.apply_mesh("pipe", _args(**args), tcfg.create(template)) == "pipe"
         return
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node"):
         tcommon.apply_mesh("pipe", _args(**args), tcfg.create(template))
+
+
+def _cpu_templates(tmp_path, **extra):
+    out = {}
+    for kind in ("inversion", "composite"):
+        template = tcfg.merge(tcfg.load(os.path.join(
+            ROOT, "configs", f"group_{kind}", "template.yaml")), dict(device="cpu", **extra))
+        out[kind] = str(tmp_path / f"{kind}.yaml")
+        with open(out[kind], "w") as f:
+            f.write(tcfg.to_yaml(template))
+    return out
+
+
+def test_cli_under_a_launcher(tmp_path, monkeypatch):
+    """Both CLIs under `python -m torch.distributed.run --nproc_per_node 2`
+    with --mesh 2 (gloo, `device: cpu`; 2 frames over seq = 2), and with
+    --mesh 1 (rank 0 alone on the mesh, rank 1 leaves), write what the
+    single-process CLIs write: rank 0 alone saves (one log line per
+    trajectory and per video), the trajectories equal the single-process
+    ones within 1e-5 of max |x| plus the store's fp16 rounding (one fp16
+    step of the value), and the same files exist.  Without a
+    launcher --mesh 2 raises, naming torchrun; a template quantizing
+    after a mesh raises as the JAX CLI does (apply_mesh runs before
+    apply_quantize, and enable_int8 refuses a mesh)."""
+    import socket
+    import subprocess
+
+    templates = _cpu_templates(tmp_path)
+    roots = {}
+    for run, mesh_arg in (("single", None), ("mesh", "2"), ("mesh1", "1")):
+        roots[run] = str(tmp_path / run)
+        paths = tt.write_demo_tree(roots[run], HW, HW, F, STEPS)
+        for kind, mod in (("inversion", tinverse), ("composite", tcomposite)):
+            argv = ["--template_config", templates[kind], "--configs_json", paths[kind],
+                    "--checkpoint", "tiny"]
+            if run == "single":
+                mod.main(argv)
+                continue
+            if run == "mesh":
+                with pytest.raises(RuntimeError, match="torchrun --nproc_per_node"):
+                    mod.main(argv + ["--mesh", "2"])
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                 "--master_addr", "127.0.0.1", "--master_port", str(port), "-m",
+                 f"mvoc_tpu_torch.cli.{mod.__name__.rsplit('.', 1)[1]}"] + argv
+                + ["--mesh", mesh_arg],
+                env=env, capture_output=True, text=True, timeout=300)
+            log = proc.stdout + proc.stderr
+            assert proc.returncode == 0, log[-4000:]
+            if run == "mesh1":
+                assert log.count("rank outside the 1-rank mesh") == 1, log[-4000:]
+            if kind == "inversion":
+                assert log.count("saved trajectory") == len(tt.DEMO_VIDEOS), log[-4000:]
+                assert log.count("saved reconstruction") == 1
+            else:
+                assert log.count("saved composite video") == 1, log[-4000:]
+    for run in ("mesh", "mesh1"):
+        for name in tt.DEMO_VIDEOS:
+            stores = [TrajectoryStore(os.path.join(roots[r], "inversions", "i2vgen-xl", name,
+                                                   "ddim_latents")) for r in ("single", run)]
+            one, mesh = (st.gather(st.timesteps) for st in stores)
+            np.testing.assert_allclose(mesh, one, rtol=2**-10, atol=1e-5 * np.abs(one).max())
+        assert sorted(_files(roots[run])) == sorted(_files(roots["single"])), run
+    pipe = tt.build_tiny_pipeline(device="cpu")
+    pipe.mesh = tcommon.pm.Mesh(seq=2)  # as enable_mesh leaves it on a 2-rank mesh
+    with pytest.raises(NotImplementedError, match="call enable_int8 BEFORE enable_mesh"):
+        tcommon.apply_quantize(pipe, tcfg.create({"quantize": "int8"}))
 
 
 @pytest.mark.parametrize("kind,key", [("inversion", "batch_inversions"),

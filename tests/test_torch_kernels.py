@@ -5,6 +5,8 @@ card and no JAX:  python -m pytest --noconftest tests/test_torch_kernels.py
 Without a card every kernel test here skips; the check of the bf16
 tolerance itself runs on the CPU."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -300,10 +302,14 @@ def test_flash_bias_matches_plain(cuda_device, variant, dtype, f, window, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fn,layout", [("sdpa", "sf"), ("sdpa_frames", "natural")])
 def test_frame_axis_over_64_frames_launches_k1(cuda_device, dtype, fn, layout):
-    """layers.sdpa / sdpa_frames at F = 96 with a temporal window band: K1
-    with the bias (natural layout: one launch per batch entry, q/k/v read in
+    """layers.sdpa / frame_axis_attention (layout "natural", the JAX
+    package's sdpa_frames) at F = 96 with a temporal window band: K1 with
+    the bias (natural layout: one launch per batch entry, q/k/v read in
     place), D = 64 and the image-latents encoder's D = 4."""
     from mvoc_tpu_torch.models import layers as tl
+
+    port = tl.sdpa if fn == "sdpa" else functools.partial(tattn.frame_axis_attention,
+                                                          layout="natural")
 
     f, s, b = 96, 40, 2
     for heads, d in ((5, 64), (2, 4)):
@@ -313,13 +319,13 @@ def test_frame_axis_over_64_frames_launches_k1(cuda_device, dtype, fn, layout):
                    for _ in range(3))
         mask = torch.from_numpy(_band(f, 9)).to(cuda_device)
         before = dict(tattn.LAUNCHES)
-        got = getattr(tl, fn)(q, k, v, heads, mask=mask)
+        got = port(q, k, v, heads, mask=mask)
         torch.cuda.synchronize()
         assert tattn.LAUNCHES["frame_attention"] == before["frame_attention"]
         assert tattn.LAUNCHES["flash_attention"] == before["flash_attention"] + (
             1 if layout == "sf" else b)
-        want = getattr(tl, fn)(q.float().cpu(), k.float().cpu(), v.float().cpu(), heads,
-                               mask=mask.cpu())
+        want = port(q.float().cpu(), k.float().cpu(), v.float().cpu(), heads,
+                    mask=mask.cpu())
         tol = (2e-5 if dtype == torch.float32 else BF16_REL) * want.abs().max().item()
         assert (got.float().cpu() - want).abs().max().item() <= tol
 

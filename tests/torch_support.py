@@ -19,7 +19,8 @@ GOLDEN_SOURCES = (
     "mvoc_tpu/io/media.py", "mvoc_tpu/io/trajectory.py", "mvoc_tpu/models/clip.py",
     "mvoc_tpu/models/layers.py", "mvoc_tpu/models/unet_i2vgen.py", "mvoc_tpu/models/vae.py",
     "mvoc_tpu/ops/attention.py", "mvoc_tpu/ops/conv.py", "mvoc_tpu/ops/ddim.py",
-    "mvoc_tpu/ops/quantize.py", "mvoc_tpu/ops/s8gemm.py", "mvoc_tpu/pipeline/core.py", "mvoc_tpu/pipeline/i2vgen.py",
+    "mvoc_tpu/ops/quantize.py", "mvoc_tpu/ops/ring_attention.py", "mvoc_tpu/ops/s8gemm.py",
+    "mvoc_tpu/parallel/mesh.py", "mvoc_tpu/pipeline/core.py", "mvoc_tpu/pipeline/i2vgen.py",
     "mvoc_tpu/pnp.py", "mvoc_tpu/utils/quality.py", "mvoc_tpu/utils/testing.py",
     "scripts/torch_parity_goldens.py",
 )
