@@ -42,7 +42,15 @@ Phases, in order (each failure ends the run with a non-zero exit):
      (after phase 3 and after phase 5, one steady stream composite step of
      the bf16 and of the int8-mixed path runs again under torch.profiler:
      its wall time with and without the profiler, the device's busy time
-     and idle share, and device time by kernel group);
+     and idle share, and device time by kernel group; its warm-up call is
+     counted by utils.flops: TF per step by class, achieved TF/s, mfu (over
+     989 TF/s bf16), each class's TF/s in its kernel group's device time,
+     and the speed-of-light floor, each class's operations over its peak,
+     which a step measured faster than fails the run.  After phase 3's
+     profile, the route check: one full-width 5-branch UNet forward counted
+     on the card and shape-only on meta, equal class by class; after phase
+     5's, one int8-mixed fused step counted shape-only, phase 9's
+     one-process count);
   6b. (on phase 2's bf16 pipeline, before phase 5 quantizes it) every reuse
      and broadcast mode through the entry points at 512 px: inversions of
      the background video (6 steps: exact, encoder reuse k = 2, k = 2 deep,
@@ -107,7 +115,8 @@ Phases, in order (each failure ends the run with a non-zero exit):
      entries' conditioning exchanged, their masks exchanged) beyond it;
      then one steady batched step under torch.profiler, its trace booked
      by utils.profiling.device_op_breakdown to kernel groups and UNet
-     modules;
+     modules, with its operations (counted as above) by class and by UNet
+     module beside those device times;
   7c. both CLIs with the reuse modes, on phase 7's pipeline and demo tree:
      cli.inverse.run on bg (recon on) with `encoder_reuse_interval: auto`
      (candidates [3, 2], 4 probe steps, deep_reuse), its store recomputed,
@@ -139,12 +148,14 @@ Phases, in order (each failure ends the run with a non-zero exit):
      rank's results must equal rank 0's; per rank its wall time, K1 / K2 /
      K3 launches (required > 0 where its path launches them), collective
      calls and peak memory per stage, its local launch shapes (which join
-     phase 8).  Before the spawn, which collectives gloo takes on CUDA
-     tensors (all-reduce, all-gather and all-to-all must: the port hands
-     them CUDA tensors and stages only the ring's point-to-point through
-     host memory).  And one NCCL process group of world size 1 through
-     enable_mesh (the launcher's environment, the default backend on CUDA):
-     its 1x1x1 mesh's UNet forward bitwise the unmeshed one;
+     phase 8), and its operations on the int8 fused step (utils.flops)
+     beside the one-process count over the world size.  Before the spawn,
+     which collectives gloo takes on CUDA tensors (all-reduce, all-gather
+     and all-to-all must: the port hands them CUDA tensors and stages only
+     the ring's point-to-point through host memory).  And one NCCL
+     process group of world size 1 through enable_mesh (the launcher's
+     environment, the default backend on CUDA): its 1x1x1 mesh's UNet
+     forward bitwise the unmeshed one;
   8. kernel phases: K1 and K2 at every distinct shape the bf16 slice, the
      reuse phases, the CLI phases, the mesh and the tiled decode launched,
      plus a ragged 14400-token K1 case and K1 with the temporal-window band as its
@@ -162,7 +173,9 @@ Phases, in order (each failure ends the run with a non-zero exit):
      K2: mma or SIMT; K3: wgmma or mma), its rate, its share of that
      bound, its ratio to the library call, and the device time and error
      of its old design on the same inputs (K1, K2: PR 1's SIMT kernels; K3:
-     PR 2's mma.sync kernel); after the build, per-kernel registers
+     the mma.sync kernel), its operations from utils.flops.kernel_flops
+     (K1's band rows bound by the pairs the function needs, beside the
+     kernel's count of every pair); after the build, per-kernel registers
      (-Xptxas -v) and the HGMMA / IGMMA / HMMA / IMMA counts in each
      kernel's SASS (cuobjdump); K3's host cost per launch.  Last, the bf16
      and int8-mixed composite steps with K1's, K2's and K3's shares.
@@ -243,6 +256,14 @@ TOL_MESH = 0.1
 MESH_RING_FRAMES, MESH_RING_WINDOW = 32, 16
 MESH_ULYSSES_PIXELS = 320
 HOST_CALLS = 200  # K3 wrapper calls timed on the host clock, back to back
+# each operation class of utils.flops: the peak rate it can run at on the card
+# (the steps' float work is bf16, their int8 products K3's) and the kernel
+# group (utils.profiling.KERNEL_GROUPS) whose device time it runs in
+CLASS_PEAK = {"conv": PEAK_BF16_FLOPS, "dot": PEAK_BF16_FLOPS,
+              "flash_attention": PEAK_BF16_FLOPS, "frame_attention": PEAK_BF16_FLOPS,
+              "s8_matmul": PEAK_INT8_OPS}
+CLASS_GROUP = {"conv": "convolution", "dot": "GEMM", "flash_attention": "K1 flash attention",
+               "frame_attention": "K2 frame attention", "s8_matmul": "K3 s8 GEMM"}
 
 KERNELS = {
     "flash_attention": dict(source="mvoc_tpu_torch/csrc/flash_attention.cu",
@@ -256,7 +277,7 @@ KERNELS = {
 # tensor-core designs really run on the tensor cores
 # each kernel's rate (K1, K3 operations; K2, bound by HBM, bytes) and the
 # design its old-design rows time
-RATE = {"flash_attention": lambda ph: (ph["flops"] / ph["ms"] / 1e9, "TF/s"),
+RATE = {"flash_attention": lambda ph: (ph["bound_flops"] / ph["ms"] / 1e9, "TF/s"),
         "frame_attention": lambda ph: (ph["bytes"] / ph["ms"] / 1e6, "GB/s"),
         "s8_matmul": lambda ph: (ph["flops"] / ph["ms"] / 1e9, "TOP/s")}
 OLD_DESIGN = {"flash_attention": "PR 1 SIMT", "frame_attention": "PR 1 SIMT",
@@ -465,17 +486,51 @@ def one_step_inputs(pipe, videos, masks, stores, steps: int, seed: int, two_pass
     return init, cond, one, ms, pb, ps, cw
 
 
+def flops_budget(by_class: dict, wall_s: float, groups_ms: dict, tag: str) -> dict:
+    """One steady step's operations (utils.flops, by class) against its time:
+    TF per step, achieved TF/s and mfu (total operations x steps/s over the
+    bf16 dense peak, for every precision), each class's rate in its kernel
+    group's device time, and the speed-of-light floor (each class's
+    operations over its peak, summed); a step faster than its floor fails
+    the run."""
+    total = by_class["total"]
+    floor_s = sum(by_class[c] / peak for c, peak in CLASS_PEAK.items())
+    rates = {}
+    for c, group in CLASS_GROUP.items():
+        secs = (groups_ms or {}).get(group, 0.0) / 1e3
+        rates[c] = by_class[c] / secs / 1e12 if by_class[c] and secs else None
+    shares = {c: None if r is None else 1e12 * r / CLASS_PEAK[c] for c, r in rates.items()}
+    out = dict(tf_per_step={c: by_class[c] / 1e12 for c in (*CLASS_PEAK, "total")},
+               achieved_tf_s=total / wall_s / 1e12, mfu=total / wall_s / PEAK_BF16_FLOPS,
+               floor_s=floor_s, class_tf_s=rates, class_peak_share=shares)
+    log(f"{tag} operations of one steady step (utils.flops, counted on its warm-up): "
+        f"{ {c: round(v, 4) for c, v in out['tf_per_step'].items()} } TF; achieved "
+        f"{out['achieved_tf_s']:.2f} TF/s at {1e3 * wall_s:.1f} ms a step, mfu {out['mfu']:.4f} "
+        f"(of 989 TF/s bf16); per class, TF/s in its own device time "
+        f"{ {c: None if r is None else round(r, 2) for c, r in rates.items()} } (share of its "
+        f"peak { {c: None if v is None else round(v, 4) for c, v in shares.items()} }); "
+        f"speed-of-light floor {1e3 * floor_s:.2f} ms")
+    if not wall_s >= floor_s:
+        raise RuntimeError(f"{tag}: a steady step measured {1e3 * wall_s:.2f} ms, under its "
+                           f"speed-of-light floor of {1e3 * floor_s:.2f} ms")
+    return out
+
+
 def profile_step(run, tag: str, trace_dir=None) -> dict:
     """One composite step (`run`, warmed up first) under torch.profiler:
     its wall time, the device's busy time (the union of the kernels'
     intervals) and idle share, and the device time by kernel group; its
-    Chrome trace written to trace_dir/trace.json when given."""
+    Chrome trace written to trace_dir/trace.json when given.  The warm-up
+    is counted by utils.flops (flops_budget; `flops_by_module`: by UNet
+    child)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mvoc_tpu_torch.utils.flops import FlopCounter
     from mvoc_tpu_torch.utils.profiling import UNET_SCOPE, kernel_group
 
-    sync_time(run)
+    with FlopCounter() as counter:
+        sync_time(run)
     _, wall_s = sync_time(run)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, prof_s = sync_time(run)
@@ -488,7 +543,8 @@ def profile_step(run, tag: str, trace_dir=None) -> dict:
                and not e.name.startswith(UNET_SCOPE)]
     if not kernels:
         log(f"{tag} profile: no device events (CUPTI gave none): not measured")
-        return dict(wall_s=wall_s, device_busy_ms=None)
+        return dict(wall_s=wall_s, device_busy_ms=None, flops_by_module=counter.modules(),
+                    flops=flops_budget(counter.by_class(), wall_s, None, tag))
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -518,7 +574,60 @@ def profile_step(run, tag: str, trace_dir=None) -> dict:
         f"{1e3 * prof_s:.1f} ms profiled; device busy {out['device_busy_ms']:.1f} ms over "
         f"{out['launches']} kernel launches, idle share {out['idle_share']:.3f}; device ms by "
         f"group: { {g: round(v, 2) for g, v in out['groups_ms'].items()} }")
+    out.update(flops=flops_budget(counter.by_class(), wall_s, out["groups_ms"], tag),
+               flops_by_module=counter.modules())
     return out
+
+
+def path_flops(pipe, init, cond, one, ms, pb, ps, steps: int) -> dict:
+    """TF of one step of the fused and the two_pass=True composite and of one
+    inversion step (one branch: cfg 1, bg's conditioning), counted
+    shape-only on phase 3's inputs."""
+    import torch
+
+    from mvoc_tpu_torch.pipeline import core
+    from mvoc_tpu_torch.utils import flops as FL
+
+    out = {}
+    with torch.inference_mode():
+        for name, two_pass in (("fused", False), ("two_pass", True)):
+            out[name] = FL.forward_flops(core.pnp_composite_core, pipe.unet, pipe.ddim, init,
+                                         cond, one, ms, pb, ps, num_inference_steps=steps,
+                                         guidance_scale=9.0, two_pass=two_pass)
+        out["inversion"] = FL.forward_flops(core.ddim_inversion_core, pipe.unet, pipe.ddim, init,
+                                            cond.slice(0, 1), one.timesteps[:1], steps)
+    log("one step, shape-only count (TF): " + "; ".join(
+        f"{name} { {c: round(v / 1e12, 4) for c, v in by.items()} }" for name, by in out.items()))
+    return out
+
+
+def route_check(pipe, init, cond, t: int) -> dict:
+    """One full-width UNet forward of the fused batch (N+3 branches) counted
+    on the card (the kernels launched) and shape-only on meta
+    (utils.flops.forward_flops): equal class by class, or the run fails,
+    so that the count sees every launch."""
+    import torch
+
+    from mvoc_tpu_torch.utils import flops as FL
+
+    b = cond.encoder_hidden_states.shape[0]
+    x = init[None].expand(b, *init.shape)
+    fwd = lambda unet, x, **kw: unet(x, t, **kw)  # noqa: E731
+    reset_counts()
+    with torch.inference_mode():
+        card = FL.matmul_flops_by_class(fwd, pipe.unet, x, **cond.unet_kwargs())
+        torch.cuda.synchronize()
+        launches, _ = read_counts()
+        meta, meta_s = sync_time(lambda: FL.forward_flops(fwd, pipe.unet, x,
+                                                          **cond.unet_kwargs()))
+    log(f"route check, one {b}-branch full-width UNet forward: TF by class on the card "
+        f"(launches {launches}) { {c: v / 1e12 for c, v in card.items()} }, shape-only on meta "
+        f"({meta_s:.1f} s) { {c: v / 1e12 for c, v in meta.items()} }")
+    if card != meta:
+        raise RuntimeError(f"the card's count of a forward {card} is not its meta count {meta}")
+    if not all(launches[k] > 0 for k in ("flash_attention", "frame_attention")):
+        raise RuntimeError(f"the route check's forward launched {launches}")
+    return dict(card=card, meta_s=meta_s, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1339,10 +1448,23 @@ def batch_cli_phase(cli: dict, steps: int, tmp: str) -> dict:
         f"modules; all device time booked to UNet modules: {unet_share:.4f}")
     log(f"cli-batched: elementwise ms by module "
         f"{ {m: round(1e3 * v.get('elementwise', 0.0), 2) for m, v in cross.items()} }")
+    # the roofline budget by UNet child: its operations (the counted warm-up)
+    # over its device time, and its speed-of-light floor
+    by_module = {}
+    for m, row in profile["flops_by_module"].items():
+        secs = breakdown["by_module"].get(m, 0.0)
+        floor = sum(row[c] / peak for c, peak in CLASS_PEAK.items())
+        by_module[m] = dict(tf=row["total"] / 1e12, device_ms=1e3 * secs, floor_ms=1e3 * floor,
+                            tf_s=row["total"] / secs / 1e12 if secs else None,
+                            classes_tf={c: row[c] / 1e12 for c in CLASS_PEAK if row[c]})
+    log("cli-batched: by module, TF / device ms / TF/s / floor ms: " + "; ".join(
+        f"{m} {v['tf']:.4f} / {v['device_ms']:.2f} / "
+        f"{'-' if v['tf_s'] is None else round(v['tf_s'], 2)} / {v['floor_ms']:.2f}"
+        for m, v in sorted(by_module.items(), key=lambda kv: -kv[1]["device_ms"])))
     breakdown.pop("trace")
     return dict(run, gates=gates, per=per, profile=profile, breakdown=breakdown,
                 elementwise_booked_share=elem_in / elem if elem else None,
-                unet_share=unet_share)
+                unet_share=unet_share, flops_by_module=by_module)
 
 def cli_reuse_phase(cli: dict, tmp: str) -> dict:
     """Phase 7c: both CLIs with the reuse modes at 1280 x 720 on phase 7's
@@ -1531,6 +1653,7 @@ def _mesh_rank_body(rank: int, world: int, cfg: dict) -> dict:
     from mvoc_tpu_torch.parallel import mesh as pm
     from mvoc_tpu_torch.pipeline import core
     from mvoc_tpu_torch.utils import testing as tt
+    from mvoc_tpu_torch.utils.flops import FlopCounter
 
     dev, seed, steps, nf, size = "cuda", cfg["seed"], cfg["steps"], cfg["nf"], cfg["size"]
     out = {"rank": rank, "stages": {}, "shapes": {}, "arrays": {}}
@@ -1632,9 +1755,11 @@ def _mesh_rank_body(rank: int, world: int, cfg: dict) -> dict:
     pipe.enable_mesh(world, seq=2)
     init, cond, one, ms, pb, ps, _ = one_step_inputs(pipe, videos, masks, stores, steps,
                                                      seed, False)
-    q = _mesh_stage(out, "int8_step", lambda: core.pnp_composite_core(
-        pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
-        guidance_scale=9.0, two_pass=False))
+    with FlopCounter() as counter:
+        q = _mesh_stage(out, "int8_step", lambda: core.pnp_composite_core(
+            pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
+            guidance_scale=9.0, two_pass=False))
+    out["int8_step_flops"] = counter.by_class()
     out["int8_finite"] = bool(torch.isfinite(q).all())
     pipe.disable_mesh()
     return out
@@ -1758,6 +1883,18 @@ def mesh_phase(cfg: dict, refs: dict) -> dict:
         log(f"mesh rank {rk['rank']}: s per composite step stream "
             f"{st['stream']['s'] / steps:.3f}, fused {st['fused']['s'] / steps:.3f}; "
             f"s per inversion step {st['invert']['s'] / (3 * cfg['steps']):.3f}")
+    # each rank's operations on the int8 fused step beside the one-process
+    # count over the world: the excess is work repeated on several ranks
+    one = refs["int8_step_flops"]
+    flops = {}
+    for rk in ranks:
+        got = rk["int8_step_flops"]
+        flops[rk["rank"]] = dict(tf=got, excess={c: got[c] - one[c] / MESH_WORLD for c in got})
+        log(f"mesh rank {rk['rank']} {rk['coords']}: one int8-mixed fused step, TF by class "
+            f"{ {c: round(v / 1e12, 4) for c, v in got.items()} }; one process / {MESH_WORLD} "
+            f"{ {c: round(v / MESH_WORLD / 1e12, 4) for c, v in one.items()} }; the rank's "
+            f"excess { {c: round(v / 1e12, 4) for c, v in flops[rk['rank']]['excess'].items()} } "
+            f"({got['total'] / (one['total'] / MESH_WORLD):.3f}x its share)")
     shapes: dict = {}
     for rk in ranks:
         for stage, by_kernel in rk["shapes"].items():
@@ -1771,7 +1908,8 @@ def mesh_phase(cfg: dict, refs: dict) -> dict:
         f"{launches}; local shard shapes {sum(len(v) for v in shapes.values())}")
     if failed:
         raise RuntimeError("; ".join(failed))
-    return dict(wall_s=wall, checks=checks, launches=launches, shapes=shapes,
+    return dict(wall_s=wall, checks=checks, launches=launches, shapes=shapes, flops=flops,
+                one_process_flops=one,
                 ranks=[{k: v for k, v in rk.items() if k not in ("arrays", "shapes")}
                        for rk in ranks])
 
@@ -1897,6 +2035,7 @@ def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
     import torch.nn.functional as F
 
     from mvoc_tpu_torch.ops import attention as A
+    from mvoc_tpu_torch.utils import flops as FL
 
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -1927,12 +2066,13 @@ def _flash_measure(q, k, v, bias, mask, needed_pairs: float):
     plain_ms = cuda_ms(lambda: plain(q, k, v), reps=1)
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                       reps=TIMED_REPS)
-    flops = 4.0 * b * h * needed_pairs * d
+    # the kernel's count (every pair, utils.flops) and the bound's (the pairs needed)
+    flops = FL.kernel_flops("flash_attention", (b, h, sq, sk, d))
     nbytes = elt * (2.0 * b * h * sq * d + 2.0 * b * h * sk * d) + (
         0.0 if bias is None else 4.0 * sq * sk)
     return dict(err=err, old_err=old_err, tol=tol, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, flops=flops, bytes=nbytes, peak=peak,
-                old_ms=old_ms, design=design, out=out)
+                library_ms=lib_ms, flops=flops, bound_flops=flops * needed_pairs / (sq * sk),
+                bytes=nbytes, peak=peak, old_ms=old_ms, design=design, out=out)
 
 
 def flash_phase(sig, gen):
@@ -2030,6 +2170,7 @@ def frame_phase(sig, gen):
     import torch.nn.functional as F
 
     from mvoc_tpu_torch.ops import attention as A
+    from mvoc_tpu_torch.utils import flops as FL
 
     layout, b, f, s, heads, d, dt, masked = sig
     dev = torch.device("cuda")
@@ -2051,7 +2192,7 @@ def frame_phase(sig, gen):
     ms = graph_ms(lambda: A.frame_attention(q, k, v, heads, mask=mask, layout=layout),
                   reps=TIMED_REPS)
     n = b * s * heads
-    flops = 4.0 * n * f * f * d
+    flops = FL.kernel_flops("frame_attention", sig)
     nbytes = 4.0 * n * f * d * elt
     old = A._frame_cuda(q, k, v, heads, mask, layout, "simt")  # the PR 1 design
     old_err = (old.float() - ref).abs().max().item()
@@ -2088,6 +2229,7 @@ def s8_phase(sig, gen):
     import torch
 
     from mvoc_tpu_torch.ops import s8gemm as S8
+    from mvoc_tpu_torch.utils import flops as FL
 
     m, k, n, dt = sig
     out_dtype = getattr(torch, dt.split(".")[-1])
@@ -2111,7 +2253,7 @@ def s8_phase(sig, gen):
     err = (out.float() - ref.float()).abs().max().item()
     ms = graph_ms(lambda: S8.s8_matmul(xq, wq, sx, sw, out_dtype=out_dtype), reps=TIMED_REPS)
     out_bytes = torch.finfo(out_dtype).bits // 8
-    flops = 2.0 * m * k * n
+    flops = FL.kernel_flops("s8_matmul", sig)
     nbytes = float(m * k + k * n + 4 * (m + n) + m * n * out_bytes)
     old = S8._s8_cuda(xq, wq, sx, sw, out_dtype, "mma")  # the PR 2 design
     exact = torch.equal(out, ref) and torch.equal(old, ref)
@@ -2172,7 +2314,7 @@ def k3_host_costs(gen) -> dict:
 
 
 def bound(ph):
-    t_ops = ph["flops"] / ph["peak"]
+    t_ops = ph.get("bound_flops", ph["flops"]) / ph["peak"]
     t_bytes = ph["bytes"] / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -2224,6 +2366,7 @@ def main() -> int:
     from mvoc_tpu_torch.ops import _build
     from mvoc_tpu_torch.ops import quantize as Q
     from mvoc_tpu_torch.pipeline import core
+    from mvoc_tpu_torch.utils import flops as FL
     from mvoc_tpu_torch.utils import testing as tt
 
     # 1. build
@@ -2331,6 +2474,8 @@ def main() -> int:
     profiles = {"bf16": profile_step(lambda: core.pnp_composite_core(
         pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
         guidance_scale=9.0, two_pass="stream", capture_weights=cw), "bf16")}
+    route = route_check(pipe, init, cond, int(one.timesteps[0]))
+    route["paths"] = path_flops(pipe, init, cond, one, ms, pb, ps, steps)
     # phase 9's single-process references, on this pipeline and these stores
     mesh_ref = mesh_refs(pipe, videos, masks, bf16["stores"], steps, args.seed)
     mesh_ref.update(trajs=bf16["trajs"], stream=bf16["final"].float().cpu(), video=bf16["video"])
@@ -2422,6 +2567,16 @@ def main() -> int:
     profiles["int8-mixed"] = profile_step(lambda: core.pnp_composite_core(
         pipe.unet, pipe.ddim, init, cond, one, ms, pb, ps, num_inference_steps=steps,
         guidance_scale=9.0, two_pass="stream", capture_weights=cw), "int8-mixed")
+    # one int8-mixed fused step counted shape-only: phase 9's one-process count
+    init, cond, one, ms, pb, ps, _ = one_step_inputs(pipe, videos, masks, int8["stores"],
+                                                     steps, args.seed, False)
+    with torch.inference_mode():
+        fused_flops = FL.forward_flops(core.pnp_composite_core, pipe.unet, pipe.ddim, init, cond,
+                                       one, ms, pb, ps, num_inference_steps=steps,
+                                       guidance_scale=9.0, two_pass=False)
+    log(f"int8-mixed: one fused composite step, shape-only count (TF) "
+        f"{ {c: round(v / 1e12, 4) for c, v in fused_flops.items()} }")
+    mesh_ref["int8_step_flops"] = fused_flops
 
     mark("5")
     # 6. one stream composite step in int8 "full", on the same seeded weights
@@ -2518,7 +2673,8 @@ def main() -> int:
                        mesh_launches=mesh["shapes"].get(name, {}).get(sig, 0),
                        max_abs_err=ph["err"], tol=ph["tol"], ms=ph["ms"], call_ms=ph["call_ms"],
                        plain_ms=ph["plain_ms"], library_ms=ph["library_ms"], bound_ms=b_ms,
-                       bound_by=basis)
+                       bound_by=basis, flops=ph["flops"],
+                       bound_flops=ph.get("bound_flops", ph["flops"]))
             # the design launched, rate, share of the bound, ratio to the
             # library call, and the old design's time and error
             rate, unit = RATE[name](ph)
@@ -2530,8 +2686,12 @@ def main() -> int:
                        else f"{row['vs_library']:.2f}x the library call")
             old_txt = (f"{OLD_DESIGN[name]} design {ph['old_ms']:.4f} ms, "
                        f"err {ph['old_err']:.3g}")
+            ops_txt = f"; operations {ph['flops']:.6g}"
+            if row["bound_flops"] != ph["flops"]:
+                ops_txt += (f" (utils.flops, every pair), the bound's {row['bound_flops']:.6g} "
+                            f"(the pairs the function needs)")
             extra = (f" [{ph['design']}: {rate:.1f} {unit}, {100 * row['bound_share']:.1f}% "
-                     f"of the bound, {lib_txt}; {old_txt}]")
+                     f"of the bound, {lib_txt}; {old_txt}{ops_txt}]")
             table.append(row)
             peak_txt = {PEAK_BF16_FLOPS: "989 TF/s bf16", PEAK_FP32_FLOPS: "67 TF/s fp32",
                         PEAK_INT8_OPS: "1979 TOP/s int8"}[ph["peak"]]
@@ -2600,6 +2760,7 @@ def main() -> int:
             kernel_ms_per_step=per_step_ms, reference=dict(
                 fp32_err=ref_err, fp32_scale=ref_scale, int8_err=q_err, int8_drift=q_drift),
             int8_vs_bf16_drift=drift, k3_host=host, profiles=profiles, composite_step=step_stats,
+            route_check=route, int8_fused_step_flops=mesh_ref["int8_step_flops"],
             checkpoint={k: v for k, v in ckpt.items() if k not in ("root", "dir")},
             cli=dict({k: v for k, v in cli.items() if k not in ("shapes", "tiled")},
                      tiled={k: v for k, v in cli["tiled"].items() if k != "shapes"}),

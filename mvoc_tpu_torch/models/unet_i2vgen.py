@@ -27,7 +27,8 @@ temporal attention as context parallelism over "seq".
 Profiling: each top-level child of the forward runs inside a
 `torch.profiler.record_function("I2VGenXLUNet/<child>")` scope (`conv_in`,
 `down_blocks.0`, `mid_block`, `up_blocks.3`, ...), which
-`utils.profiling.device_op_breakdown` books device time under.
+`utils.profiling.device_op_breakdown` books device time under, and an
+active `utils.flops.FlopCounter` its operations.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from torch.profiler import record_function
 
 from mvoc_tpu_torch import pnp as pnp_lib
 from mvoc_tpu_torch.parallel import mesh as pm
+from mvoc_tpu_torch.utils import flops
 from mvoc_tpu_torch.models.layers import (
     Attention,
     Conv2d,
@@ -415,8 +417,11 @@ class ImageLatentsTemporalEncoder(nn.Module):
 
 
 def _scope(child: str):
-    """The profiler scope of one top-level child of the UNet forward."""
-    return record_function(f"I2VGenXLUNet/{child}")
+    """The profiler scope of one top-level child of the UNet forward (and the
+    module an active operation counter books to)."""
+    if flops.COUNTER is None:
+        return record_function(f"I2VGenXLUNet/{child}")
+    return flops.COUNTER.scope(child, record_function(f"I2VGenXLUNet/{child}"))
 
 
 class I2VGenXLUNet(nn.Module):

@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 
 from mvoc_tpu_torch.ops import _build
+from mvoc_tpu_torch.utils import flops as _flops
 
 NEG_BIG = -1e30  # finite mask value, never -inf (see csrc/common.cuh)
 
@@ -199,12 +200,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head dim) -> [B, H, Sq, D]; bias: optional fp32 [Sq, Sk] added to the
     scaled logits of every (batch, head), -1e30 where masked (band_bias),
     each row keeping at least one key (refused otherwise).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    An active utils.flops counter books the call (meta tensors: shape only)."""
+    if _flops.COUNTER is not None:
+        return _flash_counted(q, k, v, bias)
     if bias is not None:
         _check_bias_rows(bias)
     if q.is_cuda:
         return _flash_cuda(q, k, v, bias=bias)
     return flash_attention_plain(q, k, v, bias)
+
+
+def _flash_counted(q, k, v, bias):
+    """flash_attention booked by the active utils.flops counter."""
+    b, h, sq, d = q.shape
+
+    def run():
+        if bias is not None:
+            _check_bias_rows(bias)
+        return _flash_cuda(q, k, v, bias=bias) if q.is_cuda else flash_attention_plain(
+            q, k, v, bias)
+
+    return _flops.COUNTER.kernel(
+        "flash_attention", (b, h, sq, k.shape[2], d, str(q.dtype), bias is not None), q.device,
+        run, lambda: torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +341,23 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
 
     layout "natural": q/k/v [B, F, S, H*D] (frame-major, frame_axis_attention);
     layout "sf":      q/k/v [S, F, H*D]    (pixel-major tokens, sdpa).
-    mask: optional [F, F] boolean band (windowed temporal attention)."""
+    mask: optional [F, F] boolean band (windowed temporal attention).
+    An active utils.flops counter books the call (meta tensors: shape only)."""
+    if _flops.COUNTER is not None:
+        return _frame_counted(q, k, v, heads, mask, layout)
     if q.is_cuda:
         return _frame_cuda(q, k, v, heads, mask, layout)
     return frame_attention_plain(q, k, v, heads, mask, layout)
+
+
+def _frame_counted(q, k, v, heads, mask, layout):
+    """frame_attention booked by the active utils.flops counter."""
+    b, f, s, inner = _as_natural(q, layout).shape
+    return _flops.COUNTER.kernel(
+        "frame_attention", (layout, b, f, s, heads, inner // heads, str(q.dtype),
+                            mask is not None), q.device,
+        lambda: (_frame_cuda if q.is_cuda else frame_attention_plain)(
+            q, k, v, heads, mask, layout), lambda: torch.empty_like(q))
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from collections import Counter
 import torch
 
 from mvoc_tpu_torch.ops import _build
+from mvoc_tpu_torch.utils import flops as _flops
 
 LAUNCHES = {"s8_matmul": 0}
 # launches per (M, K, N, out dtype), counted beside LAUNCHES
@@ -149,7 +150,20 @@ def s8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     """K3.  xq int8 [M, K], wq int8 [K, N] (any strides; the [K, N] view of
     [N, K] storage needs no copy), x_scale [M] or [M, 1], w_scale [N] or
     [1, N] -> [M, N] in out_dtype.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version.  An active utils.flops counter books the
+    call (meta tensors: shape only)."""
+    if _flops.COUNTER is not None:
+        return _s8_counted(xq, wq, x_scale, w_scale, out_dtype)
     if xq.is_cuda:
         return _s8_cuda(xq, wq, x_scale, w_scale, out_dtype)
     return s8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype)
+
+
+def _s8_counted(xq, wq, x_scale, w_scale, out_dtype):
+    """s8_matmul booked by the active utils.flops counter."""
+    (m, k), n = xq.shape, wq.shape[1]
+    return _flops.COUNTER.kernel(
+        "s8_matmul", (m, k, n, str(out_dtype)), xq.device,
+        lambda: (_s8_cuda if xq.is_cuda else s8_matmul_plain)(xq, wq, x_scale, w_scale,
+                                                              out_dtype),
+        lambda: torch.empty((m, n), dtype=out_dtype, device=xq.device))

@@ -55,6 +55,18 @@ limit, so this script runs the JAX package once and stores, as numpy:
     tests/test_parallel.py (seq 4), and one fused composite step of the
     composite case under enable_mesh(8, seq=2) (2 frames over seq 2,
     model 4);
+  * the matmul-class operation counts of mvoc_tpu/utils/flops.py
+    (`jaxpr_matmul_flops_by_class`, trace only; flops/*): the full-width
+    I2VGen-XL UNet forward (5 branches, 16 frames, 64 x 64 latents, the
+    natural temporal layout) in float and under `mixed_unet_predicate`'s
+    int8 selection, and one step of each path of the pipeline cores on the
+    composite and inversion inputs above (fused, two_pass=True, stream, the
+    inversion, the fused composite under the int8 "full" selection, and a
+    fresh then a cached step of encoder reuse k = 2 on the fused composite
+    and of deep reuse k = 2 on the inversion), each with its int8 products
+    (int8 operands), the `cond`s in its program, and its conv and dot
+    counts with every temporal conv as a convolution (`tconv_override("xla")`;
+    JAX runs the small ones as a dot_general);
   * a digest of the sources these outputs come from
     (tests/torch_support.py: GOLDEN_SOURCES).
 
@@ -68,7 +80,8 @@ cases:
 
 `--mesh-only` recomputes only the mesh cases from the params and inputs
 already in the file (a few minutes) and rewrites it with the new digest;
-the other cases depend on none of the mesh code.
+the other cases depend on none of the mesh code.  `--flops-only` does the
+same for the flops/* counts (under a minute).
 """
 
 from __future__ import annotations
@@ -206,6 +219,141 @@ def mesh_cases(out: dict) -> None:
         num_inference_steps=N_STEPS, guidance_scale=3.0, random_noise_ratio=0.3,
         two_pass=False))
     print("mesh composite step: done", flush=True)
+
+
+# the full-width UNet forward the flops/* counts take: branches, frames, latent side
+FLOPS_FULL = (5, 16, 64)
+# the steps of the pipeline cores the flops/* counts take: (name, two_pass or
+# "invert", int8, the core's keywords, run steps)
+FLOPS_STEPS = (
+    ("fused", False, False, {}, 1),
+    ("two_pass", True, False, {}, 1),
+    ("stream", "stream", False, {}, 1),
+    ("invert", "invert", False, {}, 1),
+    ("int8_fused", False, True, {}, 1),
+    ("fused_k2", False, False, dict(encoder_reuse_interval=2), 2),
+    ("invert_k2_deep", "invert", False, dict(encoder_reuse_interval=2, deep_reuse=True), 2),
+)
+
+
+def jaxpr_counts(fn, *args) -> dict:
+    """mvoc_tpu/utils/flops.py's jaxpr_matmul_flops_by_class of fn(*args),
+    plus, by the same walk (scan bodies times their length, a cond's most
+    expensive branch), "int8": the dot_general and conv products with int8
+    operands, and "conds": the number of cond equations executed."""
+    import jax
+    import jax.numpy as jnp
+
+    from mvoc_tpu.utils import flops as FL
+
+    out = FL.jaxpr_matmul_flops_by_class(fn, *args)
+    spec = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype)
+                        if hasattr(x, "shape") else x, args)
+
+    def walk(jaxpr):
+        int8, conds = 0.0, 0.0
+        for eqn in jaxpr.eqns:
+            prim = eqn.primitive.name
+            if prim in ("dot_general", "conv_general_dilated"):
+                if eqn.invars[0].aval.dtype == jnp.int8:
+                    int8 += (FL._eqn_dot_flops if prim == "dot_general"
+                             else FL._eqn_conv_flops)(eqn)
+            elif prim == "scan":
+                i, c = walk(eqn.params["jaxpr"].jaxpr)
+                int8, conds = int8 + eqn.params["length"] * i, conds + eqn.params["length"] * c
+            elif prim == "cond":
+                best = max((walk(b.jaxpr) for b in eqn.params["branches"]), key=lambda r: r[0])
+                int8, conds = int8 + best[0], conds + 1 + best[1]
+            elif prim == "while":
+                i, c = walk(eqn.params["body_jaxpr"].jaxpr)
+                int8, conds = int8 + i, conds + c
+            else:
+                for v in eqn.params.values():
+                    inner = getattr(v, "jaxpr", v if hasattr(v, "eqns") else None)
+                    if inner is not None and hasattr(inner, "eqns"):
+                        i, c = walk(inner)
+                        int8, conds = int8 + i, conds + c
+        return int8, conds
+
+    out["int8"], out["conds"] = walk(jax.make_jaxpr(fn)(*spec).jaxpr)
+    return out
+
+
+def flops_cases(out: dict) -> None:
+    """The JAX package's operation counts (trace only), from the params and
+    inputs in `out`: adds flops/* to it."""
+    import jax
+    import jax.numpy as jnp
+
+    from mvoc_tpu import pnp as jp
+    from mvoc_tpu.models.unet_i2vgen import I2VGenXLUNet, UNetConfig
+    from mvoc_tpu.ops import conv as conv_forms
+    from mvoc_tpu.ops import quantize as jq
+    from mvoc_tpu.ops.ddim import DDIM, SchedulerConfig
+    from mvoc_tpu.pipeline import core
+
+    def store(name, counts):
+        for k, v in counts.items():
+            out[f"flops/{name}/{k}"] = np.asarray(float(v))
+        print(f"flops {name}: { {k: float(v) for k, v in counts.items()} }", flush=True)
+
+    b, f, lat = FLOPS_FULL
+    full = I2VGenXLUNet(dataclasses.replace(UNetConfig(), temporal_natural_layout=True))
+    d = full.config.cross_attention_dim
+    sds = jax.ShapeDtypeStruct
+    x = dict(sample=sds((b, f, lat, lat, 4), jnp.float32), timestep=sds((b,), jnp.int32),
+             fps=sds((b,), jnp.int32), image_latents_first=sds((b, f, lat, lat, 4), jnp.float32),
+             image_latents=sds((b, f, lat, lat, 4), jnp.float32),
+             image_embeddings=sds((b, f, d), jnp.float32),
+             encoder_hidden_states=sds((b, 77, d), jnp.float32))
+    fparams = jax.eval_shape(lambda x: full.init(jax.random.key(0), **x), x)
+    store("unet_full", jaxpr_counts(lambda p, x: full.apply(p, **x), fparams, x))
+    qfull = jax.eval_shape(lambda p: jq.quantize_params(p, predicate=jq.mixed_unet_predicate),
+                           fparams)
+    store("unet_full_int8_mixed", jaxpr_counts(lambda p, x: full.apply(p, **x), qfull, x))
+
+    params = {"params": nest(out, "params")}
+    qparams = jax.eval_shape(
+        lambda p: jq.quantize_params(p, predicate=jq.default_unet_predicate), params)
+    unet = I2VGenXLUNet(UNetConfig.tiny())
+    unet_apply = lambda p, **kw: unet.apply(p, **kw)  # noqa: E731
+    ddim = DDIM(SchedulerConfig())
+    sched = core.CompositeSchedule(**{f.name: jnp.asarray(out[f"composite/sched/{f.name}"])
+                                      for f in dataclasses.fields(core.CompositeSchedule)})
+    ccond = core.UNetConditioning(**{f.name: jnp.asarray(out[f"composite/cond/{f.name}"])
+                                     for f in dataclasses.fields(core.UNetConditioning)})
+
+    def pyramid(name):
+        prefix = f"composite/{name}/"
+        return {tuple(int(n) for n in k[len(prefix):].split("x")): jnp.asarray(v)
+                for k, v in out.items() if k.startswith(prefix)}
+
+    pb, ps = pyramid("pyr_bin"), pyramid("pyr_soft")
+    cw = jp.build_capture_weights(pb, ps, True)
+    icond = core.UNetConditioning(**{f.name: jnp.asarray(out[f"invert/{f.name}"])
+                                     for f in dataclasses.fields(core.UNetConditioning)})
+    for name, two_pass, int8, kw, n in FLOPS_STEPS:
+        p = qparams if int8 else params
+        if two_pass == "invert":
+            fn = lambda p: core.ddim_inversion_core(  # noqa: E731
+                unet_apply, ddim, p, jnp.asarray(out["invert/x0"]), icond,
+                jnp.asarray(out["invert/timesteps"][:n]), 50, **kw)
+        else:
+            one = dataclasses.replace(sched, **{
+                f.name: getattr(sched, f.name)[:n] for f in dataclasses.fields(sched)
+                if f.name != "obj_fusion_lat"})
+            fn = lambda p: core.pnp_composite_core(  # noqa: E731
+                unet_apply, ddim, p, jnp.asarray(out["composite/init"]), ccond, one,
+                jnp.asarray(out["composite/masks_soft"]), pb, ps, num_inference_steps=N_STEPS,
+                guidance_scale=3.0, random_noise_ratio=0.3, two_pass=two_pass,
+                capture_weights=cw if two_pass == "stream" else None, **kw)
+        counts = jaxpr_counts(fn, p)
+        # JAX runs the small (3,1,1) temporal convs as a dot_general
+        # (ops/conv.py: tconv3_stack3), the port as a convolution
+        with conv_forms.tconv_override("xla"):
+            xla = jaxpr_counts(fn, p)
+        counts.update(conv_xla=xla["conv"], dot_xla=xla["dot"])
+        store(f"step/{name}", counts)
 
 
 def masks():
@@ -642,6 +790,7 @@ def main() -> int:
     print("odd geometry: done", flush=True)
 
     mesh_cases(out)
+    flops_cases(out)
     out["sources_digest"] = np.array(golden_sources_digest())
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
@@ -649,15 +798,17 @@ def main() -> int:
     return 0
 
 
-def mesh_only() -> int:
+def only(prefix: str, cases) -> int:
+    """Recompute the cases under `prefix` from the params and inputs already
+    in the file, and rewrite it with the digest of the sources on disk."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "float32")
     sys.path.insert(0, ROOT)
     with np.load(OUT) as z:
-        out = {k: z[k] for k in z.files if not k.startswith("mesh/")}
-    mesh_cases(out)
+        out = {k: z[k] for k in z.files if not k.startswith(prefix)}
+    cases(out)
     out["sources_digest"] = np.array(golden_sources_digest())
     np.savez_compressed(OUT, **out)
     print(f"wrote {OUT}: {len(out)} arrays, {os.path.getsize(OUT) / 1e6:.2f} MB")
@@ -665,4 +816,8 @@ def mesh_only() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_only() if "--mesh-only" in sys.argv[1:] else main())
+    if "--mesh-only" in sys.argv[1:]:
+        sys.exit(only("mesh/", mesh_cases))
+    if "--flops-only" in sys.argv[1:]:
+        sys.exit(only("flops/", flops_cases))
+    sys.exit(main())

@@ -497,3 +497,35 @@ def test_s8_on_cpu_takes_the_plain_version_and_counts_nothing():
     assert ts8.LAUNCHES["s8_matmul"] == before
     exact = (xq.long() @ wq.long()).float() * (sx[:, None] * sw[None, :])
     assert torch.equal(got, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "frame_attention", "s8_matmul"])
+def test_counter_reads_the_same_operations_on_both_routes(cuda_device, kernel):
+    """utils.flops books one call of each kernel at the same operations
+    whether the card launches it or the CPU takes the plain version, and
+    books nothing else on either route."""
+    from mvoc_tpu_torch.utils import flops
+
+    g = torch.Generator().manual_seed(0)
+    if kernel == "flash_attention":
+        args = [torch.randn(2, 5, s, 64, generator=g).to(torch.bfloat16) for s in (300, 145, 145)]
+        fn, sig = tattn.flash_attention, (2, 5, 300, 145, 64)
+    elif kernel == "frame_attention":
+        args = [torch.randn(2, 16, 77, 5 * 64, generator=g).to(torch.bfloat16)
+                for _ in range(3)] + [5]
+        fn, sig = tattn.frame_attention, ("natural", 2, 16, 77, 5, 64)
+    else:
+        args = [torch.randint(-127, 128, (300, 1280), generator=g, dtype=torch.int8),
+                torch.randint(-127, 128, (320, 1280), generator=g, dtype=torch.int8).t(),
+                torch.rand(300, generator=g) + 0.01, torch.rand(320, generator=g) + 0.01]
+        fn, sig = ts8.s8_matmul, (300, 1280, 320)
+    counts = {}
+    for dev in ("cpu", cuda_device):
+        on = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+        with flops.FlopCounter() as counter:
+            fn(*on)
+        counts[str(dev)] = counter.by_class()
+        assert counter.library_total() == 0
+    want = flops.with_total({kernel: flops.kernel_flops(kernel, sig)})
+    assert counts["cpu"] == counts["cuda"] == want

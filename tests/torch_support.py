@@ -21,7 +21,8 @@ GOLDEN_SOURCES = (
     "mvoc_tpu/ops/attention.py", "mvoc_tpu/ops/conv.py", "mvoc_tpu/ops/ddim.py",
     "mvoc_tpu/ops/quantize.py", "mvoc_tpu/ops/ring_attention.py", "mvoc_tpu/ops/s8gemm.py",
     "mvoc_tpu/parallel/mesh.py", "mvoc_tpu/pipeline/core.py", "mvoc_tpu/pipeline/i2vgen.py",
-    "mvoc_tpu/pnp.py", "mvoc_tpu/utils/quality.py", "mvoc_tpu/utils/testing.py",
+    "mvoc_tpu/pnp.py", "mvoc_tpu/utils/flops.py", "mvoc_tpu/utils/quality.py",
+    "mvoc_tpu/utils/testing.py",
     "scripts/torch_parity_goldens.py",
 )
 REGENERATE = "JAX_PLATFORMS=cpu python scripts/torch_parity_goldens.py"
