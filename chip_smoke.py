@@ -527,7 +527,7 @@ def profile_step(run, tag: str, trace_dir=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mvoc_tpu_torch.utils.flops import FlopCounter
-    from mvoc_tpu_torch.utils.profiling import UNET_SCOPE, kernel_group
+    from mvoc_tpu_torch.utils.profiling import is_span, kernel_group
 
     with FlopCounter() as counter:
         sync_time(run)
@@ -536,11 +536,11 @@ def profile_step(run, tag: str, trace_dir=None) -> dict:
         _, prof_s = sync_time(run)
     if trace_dir is not None:
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-    # device kernels and copies, not the device lane's copies of the UNet's
-    # profiler scopes (user annotations)
+    # device kernels and copies, not the device lane's copies of the port's
+    # spans (user annotations)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith(UNET_SCOPE)]
+               and not is_span(e.name)]
     if not kernels:
         log(f"{tag} profile: no device events (CUPTI gave none): not measured")
         return dict(wall_s=wall_s, device_busy_ms=None, flops_by_module=counter.modules(),

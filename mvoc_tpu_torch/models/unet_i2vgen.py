@@ -24,11 +24,14 @@ dict) stays this rank's block, and only a forward on the same mesh and frame
 count reads it back.  `config.temporal_cp` ("ring" / "ulysses") runs the
 temporal attention as context parallelism over "seq".
 
-Profiling: each top-level child of the forward runs inside a
-`torch.profiler.record_function("I2VGenXLUNet/<child>")` scope (`conv_in`,
-`down_blocks.0`, `mid_block`, `up_blocks.3`, ...), which
-`utils.profiling.device_op_breakdown` books device time under, and an
-active `utils.flops.FlopCounter` its operations.
+Profiling (`utils.profiling.span`: recorded only while a torch profiler
+records): the forward runs inside the span `I2VGenXLUNet`, each top-level
+child inside `I2VGenXLUNet/<child>` (`conv_in`, `down_blocks.0`,
+`mid_block`, `up_blocks.3`, ...), which an active `utils.flops.FlopCounter`
+books its operations to, and each sub-block of a down, mid or up block
+inside `I2VGenXLUNet/<child>/<sub>` (`resnets.i`, `temp_convs.i`,
+`attentions.i`, `temp_attentions.i`, `downsamplers.0`, `upsamplers.0`).
+`utils.profiling.device_op_breakdown` books device time under all of them.
 """
 
 from __future__ import annotations
@@ -41,11 +44,10 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
-
 from mvoc_tpu_torch import pnp as pnp_lib
 from mvoc_tpu_torch.parallel import mesh as pm
 from mvoc_tpu_torch.utils import flops
+from mvoc_tpu_torch.utils.profiling import UNET_SCOPE, span
 from mvoc_tpu_torch.models.layers import (
     Attention,
     Conv2d,
@@ -283,13 +285,23 @@ def _conv_edit(pnp, h, w, site_id, rec):
 # ---------------------------------------------------------------------------
 
 
-class _Block3D(nn.Module):
+class _Sub:
+    """Runs a block's sub-blocks inside their spans, named
+    `I2VGenXLUNet/<child>/<sub>` from the block's child name."""
+
+    def _sub(self, sub: str, module, *args, **kwargs):
+        with span(f"{UNET_SCOPE}{self.child}/{sub}"):
+            return module(*args, **kwargs)
+
+
+class _Block3D(_Sub, nn.Module):
     """resnets + temp_convs (+ attentions + temp_attentions with cross_attn)
     per layer; the shared body of the down and up blocks."""
 
     def __init__(self, cfg: UNetConfig, in_channels: list[int], out_channels: int,
-                 cross_attn: bool):
+                 cross_attn: bool, child: str):
         super().__init__()
+        self.child = child
         temb = cfg.time_embed_dim
         g, eps = cfg.norm_num_groups, cfg.norm_eps
         self.resnets = nn.ModuleList([
@@ -315,30 +327,31 @@ class _Block3D(nn.Module):
 
 class DownBlock3D(_Block3D):
     def __init__(self, cfg, in_channels: int, out_channels: int, add_downsample: bool,
-                 cross_attn: bool):
+                 cross_attn: bool, child: str = "down_blocks"):
         ins = [in_channels] + [out_channels] * (cfg.layers_per_block - 1)
-        super().__init__(cfg, ins, out_channels, cross_attn)
+        super().__init__(cfg, ins, out_channels, cross_attn, child)
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, out_channels)])
                              if add_downsample else None)
 
     def forward(self, x, temb, context, num_frames):
         res = []
         for i in range(len(self.resnets)):
-            x = self.resnets[i](x, temb)
-            x = self.temp_convs[i](x, num_frames)
+            x = self._sub(f"resnets.{i}", self.resnets[i], x, temb)
+            x = self._sub(f"temp_convs.{i}", self.temp_convs[i], x, num_frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, context)
-                x = self.temp_attentions[i](x, num_frames)
+                x = self._sub(f"attentions.{i}", self.attentions[i], x, context)
+                x = self._sub(f"temp_attentions.{i}", self.temp_attentions[i], x, num_frames)
             res.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0](x)
+            x = self._sub("downsamplers.0", self.downsamplers[0], x)
             res.append(x)
         return x, res
 
 
-class UNetMidBlock3DCrossAttn(nn.Module):
+class UNetMidBlock3DCrossAttn(_Sub, nn.Module):
     def __init__(self, cfg: UNetConfig, channels: int):
         super().__init__()
+        self.child = "mid_block"
         heads = cfg.heads_for(channels)
         g, eps, temb = cfg.norm_num_groups, cfg.norm_eps, cfg.time_embed_dim
         self.resnets = nn.ModuleList([
@@ -355,17 +368,19 @@ class UNetMidBlock3DCrossAttn(nn.Module):
                                      natural_layout=cfg.temporal_natural_layout)])
 
     def forward(self, x, temb, context, num_frames):
-        x = self.temp_convs[0](self.resnets[0](x, temb), num_frames)
-        x = self.attentions[0](x, context)
-        x = self.temp_attentions[0](x, num_frames)
-        return self.temp_convs[1](self.resnets[1](x, temb), num_frames)
+        x = self._sub("resnets.0", self.resnets[0], x, temb)
+        x = self._sub("temp_convs.0", self.temp_convs[0], x, num_frames)
+        x = self._sub("attentions.0", self.attentions[0], x, context)
+        x = self._sub("temp_attentions.0", self.temp_attentions[0], x, num_frames)
+        x = self._sub("resnets.1", self.resnets[1], x, temb)
+        return self._sub("temp_convs.1", self.temp_convs[1], x, num_frames)
 
 
 class UpBlock3D(_Block3D):
     def __init__(self, cfg, prev_channels: int, skip_channels: list[int], out_channels: int,
                  add_upsample: bool, cross_attn: bool, block_index: int):
         ins = [(prev_channels if j == 0 else out_channels) + s for j, s in enumerate(skip_channels)]
-        super().__init__(cfg, ins, out_channels, cross_attn)
+        super().__init__(cfg, ins, out_channels, cross_attn, f"up_blocks.{block_index}")
         self.block_index = block_index
         self.natural = cfg.temporal_natural_layout
         self.sites = cfg.sites
@@ -383,21 +398,24 @@ class UpBlock3D(_Block3D):
             x, skip = apply_freeu(bi, x, res_samples[-1 - i], freeu)
             x = torch.cat([x, skip], dim=-1)
             hc, wc = x.shape[1], x.shape[2]
-            x = self.resnets[i](x, temb, pnp_edit=_conv_edit(
+            x = self._sub(f"resnets.{i}", self.resnets[i], x, temb, pnp_edit=_conv_edit(
                 pnp, hc, wc, f"resnet_{bi}_{i}", capture) if i in sites.resnet_at(bi) else None)
-            x = self.temp_convs[i](x, num_frames, pnp_edit=_conv_edit(
-                pnp, hc, wc, f"tconv_{bi}_{i}", capture) if i in sites.temp_conv_at(bi) else None)
+            x = self._sub(f"temp_convs.{i}", self.temp_convs[i], x, num_frames,
+                          pnp_edit=_conv_edit(pnp, hc, wc, f"tconv_{bi}_{i}", capture)
+                          if i in sites.temp_conv_at(bi) else None)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, attn1_qk_edit=_spatial_qk_edit(
-                    pnp, hc, wc, f"spatial_{bi}_{i}", capture)
-                    if i in sites.spatial_at(bi) else None,
-                    pab=(pab_cache, pab_rec, f"sp{bi}_{i}") if pab_on else None)
-                x = self.temp_attentions[i](x, num_frames, attn1_qk_edit=_temporal_qk_edit(
-                    pnp, hc, wc, f"temporal_{bi}_{i}", capture, self.natural)
-                    if i in sites.temporal_at(bi) else None,
-                    pab=(pab_cache, pab_rec, f"tm{bi}_{i}") if pab_on else None)
+                x = self._sub(f"attentions.{i}", self.attentions[i], x, context,
+                              attn1_qk_edit=_spatial_qk_edit(
+                                  pnp, hc, wc, f"spatial_{bi}_{i}", capture)
+                              if i in sites.spatial_at(bi) else None,
+                              pab=(pab_cache, pab_rec, f"sp{bi}_{i}") if pab_on else None)
+                x = self._sub(f"temp_attentions.{i}", self.temp_attentions[i], x, num_frames,
+                              attn1_qk_edit=_temporal_qk_edit(
+                                  pnp, hc, wc, f"temporal_{bi}_{i}", capture, self.natural)
+                              if i in sites.temporal_at(bi) else None,
+                              pab=(pab_cache, pab_rec, f"tm{bi}_{i}") if pab_on else None)
         if self.upsamplers is not None:
-            x = self.upsamplers[0](x, upsample_size)
+            x = self._sub("upsamplers.0", self.upsamplers[0], x, upsample_size)
         return x
 
 
@@ -417,11 +435,11 @@ class ImageLatentsTemporalEncoder(nn.Module):
 
 
 def _scope(child: str):
-    """The profiler scope of one top-level child of the UNet forward (and the
-    module an active operation counter books to)."""
+    """The span of one top-level child of the UNet forward (and the module an
+    active operation counter books to)."""
     if flops.COUNTER is None:
-        return record_function(f"I2VGenXLUNet/{child}")
-    return flops.COUNTER.scope(child, record_function(f"I2VGenXLUNet/{child}"))
+        return span(f"{UNET_SCOPE}{child}")
+    return flops.COUNTER.scope(child, span(f"{UNET_SCOPE}{child}"))
 
 
 class I2VGenXLUNet(nn.Module):
@@ -463,7 +481,7 @@ class I2VGenXLUNet(nn.Module):
         for i, out_ch in enumerate(chans):
             final = i == n - 1
             self.down_blocks.append(DownBlock3D(cfg, prev, out_ch, add_downsample=not final,
-                                                cross_attn=not final))
+                                                cross_attn=not final, child=f"down_blocks.{i}"))
             prev = out_ch
         self.mid_block = UNetMidBlock3DCrossAttn(cfg, chans[-1])
         rev = tuple(reversed(chans))
@@ -547,23 +565,25 @@ class I2VGenXLUNet(nn.Module):
                   encoder_reuse_depth=encoder_reuse_depth, pab_cache=pab_cache,
                   pab_capture=pab_capture)
         mesh = self.config.attn_mesh
-        if mesh is None or mesh.size == 1:
-            return self._forward(sample, timestep, fps, image_latents_first, image_latents,
-                                 image_embeddings, encoder_hidden_states, **kw)
-        f, seq = sample.shape[1], mesh.size_of(pm.SEQ_AXIS)
-        fs = pm.FrameShard(mesh, f, seq > 1 and f % seq == 0)
-        if fs.sharded:
-            lo, hi = fs.offset, fs.offset + fs.local
-            sample, image_latents_first = sample[:, lo:hi], image_latents_first[:, lo:hi]
-            if multi_frame_guidance:  # every frame's context, else frame 0's (global)
-                image_latents, image_embeddings = image_latents[:, lo:hi], image_embeddings[:, lo:hi]
-            if pnp is not None:
-                kw["pnp"] = pnp_lib.frame_slice(pnp, lo, hi)
-        with pm.frame_shard(fs):
-            res = self._forward(sample, timestep, fps, image_latents_first, image_latents,
-                                image_embeddings, encoder_hidden_states, **kw)
-        out = res[0] if isinstance(res, tuple) else res
-        out = pm.gather_video(out, mesh, f, frame_axis=1)
+        with span("I2VGenXLUNet"):
+            if mesh is None or mesh.size == 1:
+                return self._forward(sample, timestep, fps, image_latents_first, image_latents,
+                                     image_embeddings, encoder_hidden_states, **kw)
+            f, seq = sample.shape[1], mesh.size_of(pm.SEQ_AXIS)
+            fs = pm.FrameShard(mesh, f, seq > 1 and f % seq == 0)
+            if fs.sharded:
+                lo, hi = fs.offset, fs.offset + fs.local
+                sample, image_latents_first = sample[:, lo:hi], image_latents_first[:, lo:hi]
+                if multi_frame_guidance:  # every frame's context, else frame 0's (global)
+                    image_latents = image_latents[:, lo:hi]
+                    image_embeddings = image_embeddings[:, lo:hi]
+                if pnp is not None:
+                    kw["pnp"] = pnp_lib.frame_slice(pnp, lo, hi)
+            with pm.frame_shard(fs):
+                res = self._forward(sample, timestep, fps, image_latents_first, image_latents,
+                                    image_embeddings, encoder_hidden_states, **kw)
+            out = res[0] if isinstance(res, tuple) else res
+            out = pm.gather_video(out, mesh, f, frame_axis=1)
         return (out,) + res[1:] if isinstance(res, tuple) else out
 
     def _forward(self, sample, timestep, fps, image_latents_first, image_latents,

@@ -28,6 +28,12 @@ per-output scales.  The Quant modules store their int8 weight as [N, K]
 (K contiguous, as K3 reads it) and pass these functions the flax-layout
 views of it, which need no copy.
 
+Spans (utils.profiling.span, recorded only while a torch profiler records):
+each Quant module's forward runs inside `int8/linear` or `int8/conv`; in
+it the activation's quantize passes inside `int8/quantize`, the patches of
+`int8_conv` inside `int8/im2col`, and K3 (its host work and launch) inside
+`int8/s8_matmul` (ops/s8gemm.py).
+
 Not carried over: the MVOC_S8_IMPL switch (XLA's int8 dot or the Pallas
 kernel; here K3 is the s8 GEMM on the card) and the MVOC_TCONV_ROWS
 override of the stacked-conv row limit.
@@ -48,6 +54,7 @@ from torch import nn
 
 from mvoc_tpu_torch.models import layers
 from mvoc_tpu_torch.ops import s8gemm
+from mvoc_tpu_torch.utils.profiling import span
 
 # int8 symmetric range: clip to +-127 (not -128) so the scale maps max|x|
 # exactly and the quantizer is symmetric around 0
@@ -92,7 +99,8 @@ def _quantize_activation(x: torch.Tensor, reduce_axes: Sequence[int], amax_hook=
     (the contraction axis for per-row scales, all but axis 0 per sample;
     amax_hook(amax) gives the amax over a contraction axis split across
     ranks).  Returns (int8 tensor, fp32 scale with keepdims)."""
-    return _symmetric(x, reduce_axes, amax_hook)
+    with span("int8/quantize"):
+        return _symmetric(x, reduce_axes, amax_hook)
 
 
 def _s8_gemm(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
@@ -161,7 +169,8 @@ def int8_conv(x: torch.Tensor, kernel: QuantizedTensor, *, strides: Sequence[int
     nd = kernel.data.ndim - 2
     taps = tuple(kernel.data.shape[:nd])
     o = kernel.data.shape[-1]
-    patches = _im2col(xq, taps, tuple(strides), [tuple(p) for p in padding])
+    with span("int8/im2col"):
+        patches = _im2col(xq, taps, tuple(strides), [tuple(p) for p in padding])
     n, out_sizes = patches.shape[0], patches.shape[1:-1]
     rows_per_sample = math.prod(out_sizes)
     k = patches.shape[-1]
@@ -212,7 +221,8 @@ class QuantLinear(_Quantized):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = QuantizedTensor(self.weight.t(), self.weight_scale)  # [K, N] view
-        return self._add_bias(int8_matmul(x, kernel, out_dtype=x.dtype))
+        with span("int8/linear"):
+            return self._add_bias(int8_matmul(x, kernel, out_dtype=x.dtype))
 
     def partial_product(self, x: torch.Tensor, tp) -> torch.Tensor:
         """This rank's fp32 term of a row-split layer (parallel/mesh.
@@ -224,12 +234,13 @@ class QuantLinear(_Quantized):
         to fp32 rounding of the sum (layers.row_parallel)."""
         from mvoc_tpu_torch.parallel import collectives as coll
 
-        xq, x_scale = _quantize_activation(
-            x, (x.ndim - 1,), amax_hook=lambda a: coll.all_reduce(a, tp, "model", op="max"))
-        m = math.prod(x.shape[:-1])
-        out = _s8_gemm(xq.reshape(m, x.shape[-1]), self.weight.t(), x_scale.reshape(m),
-                       self.weight_scale, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], self.weight.shape[0])
+        with span("int8/linear"):
+            xq, x_scale = _quantize_activation(
+                x, (x.ndim - 1,), amax_hook=lambda a: coll.all_reduce(a, tp, "model", op="max"))
+            m = math.prod(x.shape[:-1])
+            out = _s8_gemm(xq.reshape(m, x.shape[-1]), self.weight.t(), x_scale.reshape(m),
+                           self.weight_scale, out_dtype=torch.float32)
+            return out.reshape(*x.shape[:-1], self.weight.shape[0])
 
 
 class QuantConv(_Quantized):
@@ -261,15 +272,16 @@ class QuantConv(_Quantized):
         return QuantizedTensor(data.permute(*range(1, nd + 2), 0), self.weight_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        rows = math.prod(x.shape[:-1])
-        if (self.kernel_size == (3, 1, 1) and self.stride == (1, 1, 1)
-                and self.padding == (1, 0, 0) and rows <= TCONV_STACK3_MAX_ROWS
-                and x.shape[1] <= TCONV_STACK3_MAX_FRAMES):
-            y = int8_tconv_stack3(x, self.kernel(), out_dtype=x.dtype)
-        else:
-            y = int8_conv(x, self.kernel(), strides=self.stride,
-                          padding=[(p, p) for p in self.padding], out_dtype=x.dtype)
-        return self._add_bias(y)
+        with span("int8/conv"):
+            rows = math.prod(x.shape[:-1])
+            if (self.kernel_size == (3, 1, 1) and self.stride == (1, 1, 1)
+                    and self.padding == (1, 0, 0) and rows <= TCONV_STACK3_MAX_ROWS
+                    and x.shape[1] <= TCONV_STACK3_MAX_FRAMES):
+                y = int8_tconv_stack3(x, self.kernel(), out_dtype=x.dtype)
+            else:
+                y = int8_conv(x, self.kernel(), strides=self.stride,
+                              padding=[(p, p) for p in self.padding], out_dtype=x.dtype)
+            return self._add_bias(y)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ rounded once to `out_dtype` (fp32 or bf16).  `s8_matmul` launches the
 hand-written CUDA kernel `csrc/s8_gemm.cu` for CUDA tensors and takes the
 plain version for CPU tensors only; on a CUDA tensor the kernel cannot take
 it raises, there is no fallback (and nothing here calls `torch._int_mm` or
-cuBLAS).  `LAUNCHES` / `LAUNCH_SHAPES` count the kernel's launches.
+cuBLAS).  `LAUNCHES` / `LAUNCH_SHAPES` count the kernel's launches.  Each
+call runs inside the span `int8/s8_matmul` (utils.profiling.span): the
+kernel launches through ctypes, which the profiler sees as a bare runtime
+call with no aten op around it.
 
 The plain version computes the product in float64: every partial sum is an
 integer below K * 127^2 < 2^53, so float64 holds it exactly in any order,
@@ -31,6 +34,7 @@ import torch
 
 from mvoc_tpu_torch.ops import _build
 from mvoc_tpu_torch.utils import flops as _flops
+from mvoc_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"s8_matmul": 0}
 # launches per (M, K, N, out dtype), counted beside LAUNCHES
@@ -152,11 +156,12 @@ def s8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     [1, N] -> [M, N] in out_dtype.  CUDA tensors launch the kernel; CPU
     tensors take the plain version.  An active utils.flops counter books the
     call (meta tensors: shape only)."""
-    if _flops.COUNTER is not None:
-        return _s8_counted(xq, wq, x_scale, w_scale, out_dtype)
-    if xq.is_cuda:
-        return _s8_cuda(xq, wq, x_scale, w_scale, out_dtype)
-    return s8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype)
+    with span("int8/s8_matmul"):
+        if _flops.COUNTER is not None:
+            return _s8_counted(xq, wq, x_scale, w_scale, out_dtype)
+        if xq.is_cuda:
+            return _s8_cuda(xq, wq, x_scale, w_scale, out_dtype)
+        return s8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype)
 
 
 def _s8_counted(xq, wq, x_scale, w_scale, out_dtype):

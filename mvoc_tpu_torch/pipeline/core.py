@@ -15,6 +15,14 @@ The reuse and broadcast modes (encoder reuse, PAB, capture reuse) follow
 the JAX package's blockwise schedule as a plain loop: run step i is fresh
 iff i % k == 0 (fresh_steps); a fresh step computes the cache, the next
 k - 1 steps read it, and it stays on the device until the next fresh step.
+
+Spans (utils.profiling.span, recorded only while a torch profiler records):
+each step's body runs inside `step`, closed before the step callback, so
+that a profiler started or stopped there records whole steps; inside it
+`step/fusion` (noise fusion), `step/capture` (each source UNet call of the
+two-pass and stream paths, with its `_accumulate`), `step/edit` (the UNet
+call that yields the guided pair's noise: the edit pair's, or the fused
+batch's) and `step/guidance_ddim` (guidance and the DDIM update).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from mvoc_tpu_torch import pnp as pnp_lib
 from mvoc_tpu_torch.ops.ddim import DDIM
+from mvoc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,23 +103,26 @@ def _inversion_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetCondition
     cache = None
     traj = []
     for i, t in enumerate(ts):
-        t = int(t)
-        inp = branches(latents)
-        if k <= 1:
-            eps = unet(inp, t, **kw)
-        elif schedule[i]:
-            cache = None
-            if deep_reuse:
-                eps, enc, attn = unet(inp, t, **kw, return_encoder=True, pab_capture=True)
-                cache = (enc, attn)
+        with span("step"):
+            t = int(t)
+            inp = branches(latents)
+            if k <= 1:
+                eps = unet(inp, t, **kw)
+            elif schedule[i]:
+                cache = None
+                if deep_reuse:
+                    eps, enc, attn = unet(inp, t, **kw, return_encoder=True, pab_capture=True)
+                    cache = (enc, attn)
+                else:
+                    eps, cache = unet(inp, t, **kw, return_encoder=True)
+            elif deep_reuse:
+                eps = unet(inp, t, **kw, cached_encoder=cache[0], pab_cache=cache[1])
             else:
-                eps, cache = unet(inp, t, **kw, return_encoder=True)
-        elif deep_reuse:
-            eps = unet(inp, t, **kw, cached_encoder=cache[0], pab_cache=cache[1])
-        else:
-            eps = unet(inp, t, **kw, cached_encoder=cache)
-        latents = ddim.inverse_step(branches.guide(eps), t, latents, num_inference_steps)
-        traj.append(latents)
+                eps = unet(inp, t, **kw, cached_encoder=cache)
+            with span("step/guidance_ddim"):
+                latents = ddim.inverse_step(branches.guide(eps), t, latents,
+                                            num_inference_steps)
+            traj.append(latents)
         if step_callback is not None:
             step_callback(i)
     return torch.stack(traj)
@@ -183,11 +195,13 @@ def ddim_sampling_core(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetCondit
     if eta > 0.0 and noise is None:
         raise ValueError("eta > 0 requires noise")
     for i, t in enumerate(np.asarray(timesteps)):
-        inp = latents[None].expand((n_branches,) + tuple(latents.shape))
-        eps = unet(inp, int(t), **cond.unet_kwargs())
-        eps = eps[0] + guidance_scale * (eps[1] - eps[0]) if do_cfg else eps[0]
-        latents = ddim.step(eps, int(t), latents, num_inference_steps, eta=eta,
-                            noise=noise[i] if eta > 0.0 else None)
+        with span("step"):
+            inp = latents[None].expand((n_branches,) + tuple(latents.shape))
+            eps = unet(inp, int(t), **cond.unet_kwargs())
+            with span("step/guidance_ddim"):
+                eps = eps[0] + guidance_scale * (eps[1] - eps[0]) if do_cfg else eps[0]
+                latents = ddim.step(eps, int(t), latents, num_inference_steps, eta=eta,
+                                    noise=noise[i] if eta > 0.0 else None)
     return latents
 
 
@@ -374,97 +388,107 @@ def _composite_loop(unet, ddim: DDIM, latents: torch.Tensor, cond: UNetCondition
     schedule = fresh_steps(len(ts), k)
     cache = None
     for i, t in enumerate(ts):
-        t = int(t)
-        # the step's static mode (JAX's): plain, or fresh / cached under
-        # encoder reuse and PAB, cap_fresh / cap_cached under capture reuse
-        mode = "plain" if k <= 1 else ("cap_" if cap_reuse else "") + (
-            "fresh" if schedule[i] else "cached")
-        if schedule[i]:
-            cache = None  # the last block's cache dies before this step makes a new one
-        bg_lat, obj_lat = sched.bg_traj[:, i], sched.obj_traj[:, i]
-        if bool(sched.fusion_mask[i]):  # noise fusion, each entry with its own masks
-            latents = random_noise_ratio * latents + (1.0 - random_noise_ratio) * bg_lat
-            for j in range(n_obj):
-                m = mask_b[:, j]
-                paste = sched.obj_fusion_lat[:, j] * m
-                if obj_random_noise_fusion:
-                    fg = latents * m * random_noise_ratio + (1.0 - random_noise_ratio) * paste
-                else:
-                    fg = paste
-                latents = latents * (1.0 - m) + fg
-            # during fusion steps the object branches also take the fusion latents
-            obj_lat = sched.obj_fusion_lat
-        state = pnp_lib.PnPState(
-            masks=pyr_bin, masks_soft=pyr_soft,
-            gate_spatial=bool(sched.gate_spatial[i]), gate_temporal=bool(sched.gate_temporal[i]),
-            gate_conv=bool(sched.gate_conv[i]), inject_background=inject_background)
+        with span("step"):
+            t = int(t)
+            # the step's static mode (JAX's): plain, or fresh / cached under
+            # encoder reuse and PAB, cap_fresh / cap_cached under capture reuse
+            mode = "plain" if k <= 1 else ("cap_" if cap_reuse else "") + (
+                "fresh" if schedule[i] else "cached")
+            if schedule[i]:
+                cache = None  # the last block's cache dies before this step makes a new one
+            bg_lat, obj_lat = sched.bg_traj[:, i], sched.obj_traj[:, i]
+            if bool(sched.fusion_mask[i]):  # noise fusion, each entry with its own masks
+                with span("step/fusion"):
+                    latents = random_noise_ratio * latents + (1.0 - random_noise_ratio) * bg_lat
+                    for j in range(n_obj):
+                        m = mask_b[:, j]
+                        paste = sched.obj_fusion_lat[:, j] * m
+                        if obj_random_noise_fusion:
+                            fg = latents * m * random_noise_ratio + (
+                                1.0 - random_noise_ratio) * paste
+                        else:
+                            fg = paste
+                        latents = latents * (1.0 - m) + fg
+                # during fusion steps the object branches also take the fusion latents
+                obj_lat = sched.obj_fusion_lat
+            state = pnp_lib.PnPState(
+                masks=pyr_bin, masks_soft=pyr_soft, gate_spatial=bool(sched.gate_spatial[i]),
+                gate_temporal=bool(sched.gate_temporal[i]), gate_conv=bool(sched.gate_conv[i]),
+                inject_background=inject_background)
 
-        if two_pass:
-            src = torch.cat([bg_lat[:, None], obj_lat], dim=1)  # [J, N+1, F, h, w, C]
-            src_caches = None
-            if mode == "cap_cached":  # broadcast the cached source features
-                feats = cache[0] if capture_reuse_deep else cache
-            elif stream:
-                feats = None
-                src_caches = [] if mode == "fresh" else None
-                for b in range(n_obj + 1):
-                    wgt = {kind: {res: w[:, b] for res, w in pyr.items()}
-                           for kind, pyr in capture_weights.items()}
-                    kw = dict(branch_cond[b].unet_kwargs(), pnp_capture=True,
-                              pnp=dataclasses.replace(state, capture_weight=wgt))
-                    if mode == "fresh":
-                        _, f_b, enc = unet(src[:, b], t, **kw, return_encoder=True)
-                        src_caches.append(enc)
-                    elif mode == "cached":
-                        _, f_b = unet(src[:, b], t, **kw, cached_encoder=cache[0][b])
-                    else:
-                        _, f_b = unet(src[:, b], t, **kw)
-                    feats = _accumulate(feats, f_b)
-            else:
-                kw = dict(src_cond.unet_kwargs(), pnp=state, pnp_capture=True)
-                if mode == "fresh":
-                    _, feats, src_caches = unet(src.flatten(0, 1), t, **kw, return_encoder=True)
-                elif mode == "cached":
-                    _, feats = unet(src.flatten(0, 1), t, **kw, cached_encoder=cache[0])
+            if two_pass:
+                src = torch.cat([bg_lat[:, None], obj_lat], dim=1)  # [J, N+1, F, h, w, C]
+                src_caches = None
+                if mode == "cap_cached":  # broadcast the cached source features
+                    feats = cache[0] if capture_reuse_deep else cache
+                elif stream:
+                    feats = None
+                    src_caches = [] if mode == "fresh" else None
+                    for b in range(n_obj + 1):
+                        with span("step/capture"):
+                            wgt = {kind: {res: w[:, b] for res, w in pyr.items()}
+                                   for kind, pyr in capture_weights.items()}
+                            kw = dict(branch_cond[b].unet_kwargs(), pnp_capture=True,
+                                      pnp=dataclasses.replace(state, capture_weight=wgt))
+                            if mode == "fresh":
+                                _, f_b, enc = unet(src[:, b], t, **kw, return_encoder=True)
+                                src_caches.append(enc)
+                            elif mode == "cached":
+                                _, f_b = unet(src[:, b], t, **kw, cached_encoder=cache[0][b])
+                            else:
+                                _, f_b = unet(src[:, b], t, **kw)
+                            feats = _accumulate(feats, f_b)
                 else:
-                    _, feats = unet(src.flatten(0, 1), t, **kw)
-            consume = dataclasses.replace(state, mode="consume_pre", features=feats)
-            edit = torch.stack([latents, latents], dim=1).flatten(0, 1)
-            kw = dict(edit_cond.unet_kwargs(), pnp=consume)
-            if mode == "fresh":
-                eps, edit_cache = unet(edit, t, **kw, return_encoder=True)
-                cache = (src_caches, edit_cache)
-            elif mode == "cached":
-                eps = unet(edit, t, **kw, cached_encoder=cache[1])
-            elif mode == "cap_fresh" and capture_reuse_deep:
-                eps, edit_enc, attn = unet(edit, t, **kw, return_encoder=True, pab_capture=True)
-                cache = (feats, edit_enc, attn)
-            elif mode == "cap_cached" and capture_reuse_deep:
-                eps = unet(edit, t, **kw, cached_encoder=cache[1], pab_cache=cache[2])
+                    kw = dict(src_cond.unet_kwargs(), pnp=state, pnp_capture=True)
+                    with span("step/capture"):
+                        if mode == "fresh":
+                            _, feats, src_caches = unet(src.flatten(0, 1), t, **kw,
+                                                        return_encoder=True)
+                        elif mode == "cached":
+                            _, feats = unet(src.flatten(0, 1), t, **kw, cached_encoder=cache[0])
+                        else:
+                            _, feats = unet(src.flatten(0, 1), t, **kw)
+                consume = dataclasses.replace(state, mode="consume_pre", features=feats)
+                edit = torch.stack([latents, latents], dim=1).flatten(0, 1)
+                kw = dict(edit_cond.unet_kwargs(), pnp=consume)
+                with span("step/edit"):
+                    if mode == "fresh":
+                        eps, edit_cache = unet(edit, t, **kw, return_encoder=True)
+                        cache = (src_caches, edit_cache)
+                    elif mode == "cached":
+                        eps = unet(edit, t, **kw, cached_encoder=cache[1])
+                    elif mode == "cap_fresh" and capture_reuse_deep:
+                        eps, edit_enc, attn = unet(edit, t, **kw, return_encoder=True,
+                                                   pab_capture=True)
+                        cache = (feats, edit_enc, attn)
+                    elif mode == "cap_cached" and capture_reuse_deep:
+                        eps = unet(edit, t, **kw, cached_encoder=cache[1], pab_cache=cache[2])
+                    else:
+                        eps = unet(edit, t, **kw)
+                        if mode == "cap_fresh":
+                            cache = feats
+                eps = eps.unflatten(0, (n_entries, 2))
+                eps_neg, eps_pos = eps[:, 0], eps[:, 1]
             else:
-                eps = unet(edit, t, **kw)
-                if mode == "cap_fresh":
-                    cache = feats
-            eps = eps.unflatten(0, (n_entries, 2))
-            eps_neg, eps_pos = eps[:, 0], eps[:, 1]
-        else:
-            inp = torch.cat([bg_lat[:, None], obj_lat, latents[:, None], latents[:, None]],
-                            dim=1).flatten(0, 1)
-            kw = dict(cond.unet_kwargs(), pnp=state)
-            if mode == "fresh" and reuse:
-                eps, cache = unet(inp, t, **kw, return_encoder=True)
-            elif mode == "cached" and reuse:
-                eps = unet(inp, t, **kw, cached_encoder=cache)
-            elif mode == "fresh":  # PAB
-                eps, cache = unet(inp, t, **kw, pab_capture=True)
-            elif mode == "cached":
-                eps = unet(inp, t, **kw, pab_cache=cache)
-            else:
-                eps = unet(inp, t, **kw)
-            eps = eps.unflatten(0, (n_entries, nb))
-            eps_neg, eps_pos = eps[:, n_obj + 1], eps[:, n_obj + 2]
-        eps_g = eps_neg + guidance_scale * (eps_pos - eps_neg)
-        latents = ddim.step(eps_g, t, latents, num_inference_steps)
+                inp = torch.cat([bg_lat[:, None], obj_lat, latents[:, None], latents[:, None]],
+                                dim=1).flatten(0, 1)
+                kw = dict(cond.unet_kwargs(), pnp=state)
+                with span("step/edit"):
+                    if mode == "fresh" and reuse:
+                        eps, cache = unet(inp, t, **kw, return_encoder=True)
+                    elif mode == "cached" and reuse:
+                        eps = unet(inp, t, **kw, cached_encoder=cache)
+                    elif mode == "fresh":  # PAB
+                        eps, cache = unet(inp, t, **kw, pab_capture=True)
+                    elif mode == "cached":
+                        eps = unet(inp, t, **kw, pab_cache=cache)
+                    else:
+                        eps = unet(inp, t, **kw)
+                eps = eps.unflatten(0, (n_entries, nb))
+                eps_neg, eps_pos = eps[:, n_obj + 1], eps[:, n_obj + 2]
+            with span("step/guidance_ddim"):
+                eps_g = eps_neg + guidance_scale * (eps_pos - eps_neg)
+                latents = ddim.step(eps_g, t, latents, num_inference_steps)
         if step_callback is not None:
             step_callback(i)
     return latents

@@ -22,6 +22,15 @@ full result: the UNet runs each rank on its frames and its tensor-parallel
 share, the VAE encode and decode split the frames over "seq", the batch
 entry points split their J entries over "job", and every draw is the full
 tensor from the entry point's generator, each rank taking its slice.
+
+Spans (utils.profiling.span, recorded only while a torch profiler records):
+each call of invert, invert_batch, sample_composite and
+sample_composite_batch runs inside `entry/<entry point>`; inside it the
+text encode (`entry/encode_prompt`), the CLIP image encodes
+(`entry/encode_image`), the VAE encode (`entry/encode_vae`), the source
+trajectories' upload to the device (`entry/trajectory_upload`), the mask
+pyramids and capture weights (`entry/mask_pyramids`) and the VAE decode
+(`entry/decode`), beside the step loop's `step` spans (pipeline/core.py).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from mvoc_tpu_torch.ops.ddim import DDIM, SchedulerConfig, inversion_timesteps, 
 from mvoc_tpu_torch.parallel import mesh as pm
 from mvoc_tpu_torch.pipeline import core
 from mvoc_tpu_torch.utils.device import resolve_device
+from mvoc_tpu_torch.utils.profiling import span, spanned
 
 logger = logging.getLogger(__name__)
 
@@ -231,6 +241,7 @@ class I2VGenXLPipeline:
         return out["input_ids"]
 
     @torch.inference_mode()
+    @spanned("entry/encode_prompt")
     def encode_prompt(self, prompt, negative_prompt=None, do_cfg: bool = True,
                       clip_skip: int = 1, prompt_embeds: Optional[torch.Tensor] = None,
                       negative_prompt_embeds: Optional[torch.Tensor] = None):
@@ -252,6 +263,7 @@ class I2VGenXLPipeline:
         return normalize_clip_image(px)
 
     @torch.inference_mode()
+    @spanned("entry/encode_image")
     def encode_image(self, image: Image.Image, width: int) -> torch.Tensor:
         """CLIP embedding of one frame: square centre crop, bilinear to the
         CLIP size -> [1, D_img]."""
@@ -260,6 +272,7 @@ class I2VGenXLPipeline:
         return self.image_encoder(self._clip_pixels([resized]))
 
     @torch.inference_mode()
+    @spanned("entry/encode_image")
     def encode_frames(self, frames: Sequence[Image.Image], width: int,
                       strict_reference_crop: bool = True) -> torch.Tensor:
         """Per-frame CLIP embeddings [F, D_img].  strict_reference_crop
@@ -276,6 +289,7 @@ class I2VGenXLPipeline:
     # -- VAE -------------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("entry/encode_vae")
     def encode_vae_video(self, frames: Sequence[Image.Image], height: int, width: int,
                          generator: torch.Generator) -> torch.Tensor:
         """[F, h, w, C] scaled latents, sampled with noise from `generator`."""
@@ -299,6 +313,7 @@ class I2VGenXLPipeline:
         return core.prepare_image_latents(z, num_frames)
 
     @torch.inference_mode()
+    @spanned("entry/decode")
     def decode_latents(self, latents: torch.Tensor, decode_chunk_size: Optional[int] = 1
                        ) -> np.ndarray:
         """[F, h, w, C] scaled latents -> video [F, H, W, 3] in [0, 1].
@@ -369,6 +384,7 @@ class I2VGenXLPipeline:
 
     # -- entry point A: DDIM inversion ------------------------------------------
 
+    @spanned("entry/invert")
     def invert(self, frames: Sequence[Image.Image], first_frame: Optional[Image.Image] = None,
                prompt: str = "", negative_prompt: str = "", height: int = 720, width: int = 1280,
                target_fps: int = 8, num_frames: int = 16, num_inference_steps: int = 500,
@@ -426,6 +442,7 @@ class I2VGenXLPipeline:
             self._sync()
         return ts, trajectory
 
+    @spanned("entry/invert_batch")
     def invert_batch(self, videos: Sequence[Sequence[Image.Image]],
                      first_frames: Optional[Sequence[Optional[Image.Image]]] = None,
                      prompt: str = "", height: int = 720, width: int = 1280, target_fps: int = 8,
@@ -615,33 +632,39 @@ class I2VGenXLPipeline:
         gates = pnp_lib.injection_gates(full_ts, run_ts, num_inference_steps, pnp_f_t,
                                         pnp_spatial_attn_t, pnp_temp_attn_t)
         offsets = list(obj_ddim_latents_idx_offset or [0] * n_obj)
-        bg_traj = bg_store.gather(run_ts)
-        obj_traj = np.stack([s.gather(run_ts) for s in obj_stores], axis=1)
-        obj_fusion_lat = np.stack([
-            obj_stores[j].load_at_t(int(full_ts[offsets[j]:][fusion_steps[0]]))
-            for j in range(n_obj)])
+        with span("entry/trajectory_upload"):
+            bg_traj = bg_store.gather(run_ts)
+            obj_traj = np.stack([s.gather(run_ts) for s in obj_stores], axis=1)
+            obj_fusion_lat = np.stack([
+                obj_stores[j].load_at_t(int(full_ts[offsets[j]:][fusion_steps[0]]))
+                for j in range(n_obj)])
         fusion_mask = np.array([fusion_steps[0] <= i < fusion_steps[1]
                                 for i in range(len(run_ts))], dtype=bool)
 
-        h_lat, w_lat = masks_soft.shape[2], masks_soft.shape[3]
-        resolutions = self._injection_resolutions(h_lat, w_lat)
-        dev = self.device
-        pyr_bin = {k: torch.as_tensor(v, device=dev)
-                   for k, v in pnp_lib.build_mask_pyramid(masks_binary, resolutions).items()}
-        pyr_soft = {k: torch.as_tensor(v, device=dev)
-                    for k, v in pnp_lib.build_mask_pyramid(masks_soft, resolutions).items()}
-        sched = core.CompositeSchedule(
-            bg_traj=torch.as_tensor(bg_traj, dtype=torch.float32, device=dev),
-            obj_traj=torch.as_tensor(obj_traj, dtype=torch.float32, device=dev),
-            obj_fusion_lat=torch.as_tensor(obj_fusion_lat, dtype=torch.float32, device=dev),
-            gate_spatial=gates["spatial"], gate_temporal=gates["temporal"],
-            gate_conv=gates["conv"], fusion_mask=fusion_mask, timesteps=np.asarray(run_ts))
-        capture_weights = (pnp_lib.build_capture_weights(pyr_bin, pyr_soft, inject_background)
-                           if two_pass == "stream" else None)
+        with span("entry/mask_pyramids"):
+            h_lat, w_lat = masks_soft.shape[2], masks_soft.shape[3]
+            resolutions = self._injection_resolutions(h_lat, w_lat)
+            dev = self.device
+            pyr_bin = {k: torch.as_tensor(v, device=dev)
+                       for k, v in pnp_lib.build_mask_pyramid(masks_binary, resolutions).items()}
+            pyr_soft = {k: torch.as_tensor(v, device=dev)
+                        for k, v in pnp_lib.build_mask_pyramid(masks_soft, resolutions).items()}
+        with span("entry/trajectory_upload"):
+            sched = core.CompositeSchedule(
+                bg_traj=torch.as_tensor(bg_traj, dtype=torch.float32, device=dev),
+                obj_traj=torch.as_tensor(obj_traj, dtype=torch.float32, device=dev),
+                obj_fusion_lat=torch.as_tensor(obj_fusion_lat, dtype=torch.float32, device=dev),
+                gate_spatial=gates["spatial"], gate_temporal=gates["temporal"],
+                gate_conv=gates["conv"], fusion_mask=fusion_mask, timesteps=np.asarray(run_ts))
+        with span("entry/mask_pyramids"):
+            capture_weights = (pnp_lib.build_capture_weights(pyr_bin, pyr_soft,
+                                                             inject_background)
+                               if two_pass == "stream" else None)
         return (init_latents, cond, sched,
                 torch.as_tensor(masks_soft, dtype=torch.float32, device=dev),
                 pyr_bin, pyr_soft, capture_weights)
 
+    @spanned("entry/sample_composite")
     def sample_composite(self, *args, decode: bool = True, decode_chunk_size: Optional[int] = 1,
                          random_noise_ratio: float = 0.0, obj_random_noise_fusion: bool = False,
                          step_callback=None, **kwargs):
@@ -691,6 +714,7 @@ class I2VGenXLPipeline:
 
         return tuple(stack([p[i] for p in prepared]) for i in range(len(prepared[0])))
 
+    @spanned("entry/sample_composite_batch")
     def sample_composite_batch(self, entries: Sequence[dict], decode: bool = True,
                                decode_chunk_size: Optional[int] = 1,
                                random_noise_ratio: float = 0.0,

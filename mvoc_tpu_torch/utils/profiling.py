@@ -1,18 +1,44 @@
 """Profiling and run records of the CLIs (the port's own copy of
 mvoc_tpu/utils/profiling.py, over torch.profiler):
 
+  * `span(name)`: a `record_function` scope while a torch profiler
+    records, else a shared no-op (one flag read): the port's spans at its
+    layer boundaries, on the profiler's clock beside the device's kernels;
   * `trace(dir)`: torch.profiler around a block, written as a Chrome trace
     (trace.json) into `dir`;
   * `device_op_breakdown(dir)`: that trace's device time by kernel group
-    (`KERNEL_GROUPS`) and by UNet module;
-  * `StepTimer`: wall-clock time per named stage, with a JSON summary;
+    (`KERNEL_GROUPS`), by UNet module, by the innermost span and by the
+    aten op around each kernel's launch;
+  * `StepTimer`: wall-clock time per named stage, each stage a span too;
   * `save_run_config`: the merged config beside the outputs, so that every
     run can be repeated from its artifacts.
+
+The spans, by layer (their names are read by name by the benchmark's
+readers too, so they are a contract):
+
+  entry points  `entry/<entry point>` around each call of sample_composite,
+                sample_composite_batch, invert and invert_batch; inside
+                them `entry/encode_prompt`, `entry/encode_image` (CLIP),
+                `entry/encode_vae`, `entry/trajectory_upload`,
+                `entry/mask_pyramids`, `entry/decode`;
+  step loops    `step` around one step's body (closed before the step
+                callback), inside it `step/fusion`, `step/capture`,
+                `step/edit`, `step/guidance_ddim`;
+  models        `I2VGenXLUNet` around the UNet forward, its top-level
+                children `I2VGenXLUNet/<child>` and their sub-blocks
+                `I2VGenXLUNet/<child>/<sub>` (resnets.i, attentions.i,
+                temp_convs.i, temp_attentions.i, upsamplers.0,
+                downsamplers.0);
+  int8 glue     `int8/linear` / `int8/conv` around each quantized layer,
+                inside them `int8/quantize`, `int8/im2col`,
+                `int8/s8_matmul` (K3's host work and launch);
+  CLI stages    `stage/<name>` around each StepTimer stage.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -21,7 +47,42 @@ from bisect import bisect_right
 from collections import defaultdict
 from typing import Any
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 logger = logging.getLogger("mvoc_tpu_torch.profiling")
+
+
+# the first component of every span name of the port (see the module doc)
+SPAN_ROOTS = ("entry", "stage", "step", "I2VGenXLUNet", "int8")
+NO_SPAN = "(no span)"
+NO_OP = "(no aten op)"
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`record_function(name)` while a torch profiler records, else one
+    shared no-op context: with the profiler off a span costs one read of
+    the flag torch.autograd.profiler sets while a profiler is enabled."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL_SPAN
+
+
+def spanned(name: str):
+    """A decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def is_span(name: str) -> bool:
+    """Whether a profiler event's name is one of the port's spans."""
+    return name.split("/", 1)[0] in SPAN_ROOTS
 
 
 @contextlib.contextmanager
@@ -31,7 +92,6 @@ def trace(trace_dir: str | None):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(trace_dir, exist_ok=True)
@@ -66,14 +126,15 @@ def kernel_group(name: str) -> str:
 
 
 class _Scopes:
-    """The UNet scopes of one host thread, to find the innermost one around
-    an instant."""
+    """Nested scopes of one host thread (events named by `name(event)`), to
+    find the innermost one around an instant (`outside` where none is)."""
 
-    def __init__(self, events):
+    def __init__(self, events, name, outside: str):
         events = sorted(events, key=lambda e: (e["ts"], -e["dur"]))
         self.starts = [e["ts"] for e in events]
         self.ends = [e["ts"] + e["dur"] for e in events]
-        self.names = [e["name"][len(UNET_SCOPE):].split("/")[0] for e in events]
+        self.names = [name(e) for e in events]
+        self.outside = outside
         self.parent, stack = [], []
         for i, e in enumerate(events):
             while stack and self.ends[stack[-1]] <= e["ts"]:
@@ -87,7 +148,7 @@ class _Scopes:
         i = bisect_right(self.starts, ts) - 1
         while i >= 0 and self.ends[i] < ts:
             i = self.parent[i]
-        return self.names[i] if i >= 0 else OUTSIDE
+        return self.names[i] if i >= 0 else self.outside
 
 
 def _self_times(events):
@@ -108,18 +169,24 @@ def _self_times(events):
 
 def device_op_breakdown(trace_dir: str, top: int = 25) -> dict[str, Any]:
     """Where the time of the newest `trace.json` under `trace_dir` (what
-    `trace()` and the CLIs' --profile_dir write) went: device time by kernel
-    group (`by_category`, KERNEL_GROUPS) and by top-level UNet child
-    (`by_module`: `conv_in`, `down_blocks.0`, `mid_block`, `up_blocks.3`, ...,
-    and "(outside unet)"), the two crossed (`by_module_category`), and the
-    `top` kernels by time (`top_ops`), all in seconds, with `total_s` and
-    the `trace` read.  A kernel is booked to the module whose profiler
-    scope (models/unet_i2vgen.py) was innermost around its launch on the
-    host: its correlation id names the launch.  A trace without device
-    kernels (a CPU run) books the host's ops instead, each by its self time
-    (its duration less its children's) to the scope around its start.  Every event is counted once, so by_category and
-    by_module each sum to total_s.  (The counterpart of the JAX package's
-    function over its perfetto traces.)"""
+    `trace()` and the CLIs' --profile_dir write) went, in seconds: device
+    time by kernel group (`by_category`, KERNEL_GROUPS), by top-level UNet
+    child (`by_module`: `conv_in`, `down_blocks.0`, `mid_block`,
+    `up_blocks.3`, ..., and "(outside unet)"), by the innermost span around
+    the launch at its full name (`by_span`: `I2VGenXLUNet/up_blocks.3/
+    resnets.0`, `int8/s8_matmul`, `step/fusion`, `entry/encode_vae`, ...,
+    and "(no span)"), by the innermost aten op around the launch (`by_op`:
+    "(no aten op)" where none is, as for K1-K3, launched through ctypes),
+    module, span and op each crossed with the groups (`by_module_category`,
+    `by_span_category`, `by_op_category`), and the `top` kernels by time
+    (`top_ops`), with `total_s` and the `trace` read.  A kernel is booked
+    through its correlation id to its launch on the host and the scopes
+    open around that launch on the launching thread.  A trace without
+    device kernels (a CPU run) books the host's ops instead, each by its
+    self time (its duration less its children's) to the scopes around its
+    start, and to itself in by_op.  Every event is counted once, so each
+    table sums to total_s.  (The counterpart of the JAX package's function
+    over its perfetto traces.)"""
     import glob
 
     paths = glob.glob(os.path.join(trace_dir, "**", "trace.json"), recursive=True)
@@ -129,65 +196,90 @@ def device_op_breakdown(trace_dir: str, top: int = 25) -> dict[str, Any]:
     with open(path) as f:
         events = [e for e in json.load(f).get("traceEvents", [])
                   if e.get("ph") == "X" and "dur" in e]
-    by_thread = defaultdict(list)
+    units, spans, ops = defaultdict(list), defaultdict(list), defaultdict(list)
     for e in events:
-        if e.get("cat") == "user_annotation" and e["name"].startswith(UNET_SCOPE):
-            by_thread[(e["pid"], e["tid"])].append(e)
-    scopes = {k: _Scopes(v) for k, v in by_thread.items()}
+        thread = (e["pid"], e["tid"])
+        if e.get("cat") == "user_annotation" and is_span(e["name"]):
+            spans[thread].append(e)
+            if e["name"].startswith(UNET_SCOPE):
+                units[thread].append(e)
+        elif e.get("cat") == "cpu_op":
+            ops[thread].append(e)
+    scopes = {  # per table: {thread: _Scopes}
+        "module": {k: _Scopes(v, lambda e: e["name"][len(UNET_SCOPE):].split("/")[0], OUTSIDE)
+                   for k, v in units.items()},
+        "span": {k: _Scopes(v, lambda e: e["name"], NO_SPAN) for k, v in spans.items()},
+        "op": {k: _Scopes(v, lambda e: e["name"], NO_OP) for k, v in ops.items()}}
+    outside = {"module": OUTSIDE, "span": NO_SPAN, "op": NO_OP}
 
-    def scope_at(pid, tid, ts):
-        s = scopes.get((pid, tid))
-        return s.at(ts) if s is not None else OUTSIDE
+    def around(table, thread, ts):
+        s = scopes[table].get(thread)
+        return s.at(ts) if s is not None else outside[table]
 
-    booked = []  # (name, duration in µs, module)
+    booked = []  # (name, duration in µs, module, span, op)
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
     if device:
         launches = {e["args"]["correlation"]: e for e in events
                     if e.get("cat") in _LAUNCH_CATS and "correlation" in e.get("args", {})}
         for e in device:
             launch = launches.get(e.get("args", {}).get("correlation"))
-            module = (scope_at(launch["pid"], launch["tid"], launch["ts"])
-                      if launch is not None else OUTSIDE)
-            booked.append((e["name"], e["dur"], module))
+            if launch is None:
+                booked.append((e["name"], e["dur"], OUTSIDE, NO_SPAN, NO_OP))
+                continue
+            thread, ts = (launch["pid"], launch["tid"]), launch["ts"]
+            booked.append((e["name"], e["dur"], around("module", thread, ts),
+                           around("span", thread, ts), around("op", thread, ts)))
     else:
-        ops = defaultdict(list)
-        for e in events:
-            if e.get("cat") == "cpu_op":
-                ops[(e["pid"], e["tid"])].append(e)
-        for (pid, tid), thread_ops in ops.items():
+        for thread, thread_ops in ops.items():
             for e, own in _self_times(thread_ops):
-                booked.append((e["name"], own, scope_at(pid, tid, e["ts"])))
+                booked.append((e["name"], own, around("module", thread, e["ts"]),
+                               around("span", thread, e["ts"]), e["name"]))
 
-    cat, mod, names = defaultdict(float), defaultdict(float), defaultdict(float)
-    cross = defaultdict(lambda: defaultdict(float))
-    for name, dur, module in booked:
+    cat, names = defaultdict(float), defaultdict(float)
+    by = {k: defaultdict(float) for k in outside}
+    cross = {k: defaultdict(lambda: defaultdict(float)) for k in outside}
+    for name, dur, *keys in booked:
         group = kernel_group(name)
         cat[group] += dur
-        mod[module] += dur
         names[name] += dur
-        cross[module][group] += dur
+        for table, key in zip(outside, keys):
+            by[table][key] += dur
+            cross[table][key][group] += dur
     us = 1e6
 
     def table(d, n=None):
         return {k: v / us for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]}
 
-    return {"trace": path, "total_s": sum(dur for _, dur, _ in booked) / us,
-            "by_category": table(cat), "by_module": table(mod),
-            "by_module_category": {m: table(cross[m]) for m in table(mod)},
-            "top_ops": table(names, top)}
+    out = {"trace": path, "total_s": sum(b[1] for b in booked) / us,
+           "by_category": table(cat)}
+    for t in outside:
+        out[f"by_{t}"] = table(by[t])
+        out[f"by_{t}_category"] = {k: table(cross[t][k]) for k in out[f"by_{t}"]}
+    out["top_ops"] = table(names, top)
+    return out
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 class StepTimer:
-    """Accumulates named wall-clock stage timings."""
+    """Accumulates named wall-clock stage timings.  Each stage is also the
+    span `stage/<name>`, and on CUDA it synchronises at its start and end,
+    so that it times the stage's device work, not its enqueue."""
 
     def __init__(self):
         self.records: dict[str, float] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        _sync()
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"stage/{name}"):
+                yield
+                _sync()
         finally:
             dt = time.perf_counter() - t0
             self.records[name] = self.records.get(name, 0.0) + dt
@@ -195,11 +287,6 @@ class StepTimer:
 
     def summary(self) -> dict[str, float]:
         return dict(self.records)
-
-    def dump(self, path: str) -> None:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
 
 
 def save_run_config(config: Any, out_dir: str, name: str = "run_config.yaml") -> str:
