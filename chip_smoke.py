@@ -19,7 +19,10 @@ Phases, in order (each failure ends the run with a non-zero exit):
      sample_composite(two_pass="stream") with N=2 rectangle masks in the
      natural temporal layout and a VAE decode.  Every kernel launch count is
      set to 0 just before and read just after; per composite step launches,
-     wall times and peak memory are printed.  K3 must not launch here;
+     wall times and peak memory are printed.  K3 must not launch here, and
+     every norm (UNet, VAE, CLIP) must take the fused kernels: a norm on a
+     CUDA tensor that takes its plain version (ops/norm.PLAIN_CALLS) fails
+     this slice and phase 5's;
   3. one composite step through the fused path (two_pass=False) and one
      through two_pass=True (the batched capture, then the consume) from the
      same inputs as one stream step: each step's wall time and peak memory,
@@ -146,8 +149,11 @@ Phases, in order (each failure ends the run with a non-zero exit):
      then enable_int8(mode="mixed") before enable_mesh and one fused
      composite step, K3 on every rank's tensor-parallel shares.  Every
      rank's results must equal rank 0's; per rank its wall time, K1 / K2 /
-     K3 launches (required > 0 where its path launches them), collective
-     calls and peak memory per stage, its local launch shapes (which join
+     K3 and norm launches (required > 0 where its path launches them),
+     norms that took their plain version on the card (required 0 in every
+     stage: the temporal transformers' GroupNorm over a rank's frames too
+     takes the kernels, its partial moments all-gathered over "seq"),
+     collective calls and peak memory per stage, its local launch shapes (which join
      phase 8), and its operations on the int8 fused step (utils.flops)
      beside the one-process count over the world size.  Before the spawn,
      which collectives gloo takes on CUDA tensors (all-reduce, all-gather
@@ -177,7 +183,16 @@ Phases, in order (each failure ends the run with a non-zero exit):
      (K1's band rows bound by the pairs the function needs, beside the
      kernel's count of every pair); after the build, per-kernel registers
      (-Xptxas -v) and the HGMMA / IGMMA / HMMA / IMMA counts in each
-     kernel's SASS (cuobjdump); K3's host cost per launch.  Last, the bf16
+     kernel's SASS (cuobjdump); K3's host cost per launch.  Then the fused
+     norms (ops/norm.py) at every (shape, groups, eps, silu, dtype) any
+     phase launched, each against its plain version from the same inputs
+     (bf16 within TOL_BF16, fp32 within TOL_FP32 of max |plain|) and
+     bitwise against a second launch, with the kernel's device time (a CUDA
+     graph of NORM_REPS launches), its call's, the plain version's, one
+     PyTorch library call's (F.layer_norm; F.group_norm on the channels-
+     first view, then F.silu where the norm has it: a yardstick the port
+     never calls, with its error against the plain version) and the byte
+     floor.  Last, the bf16
      and int8-mixed composite steps with K1's, K2's and K3's shares.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The per-shape table also goes to
@@ -256,6 +271,7 @@ TOL_MESH = 0.1
 MESH_RING_FRAMES, MESH_RING_WINDOW = 32, 16
 MESH_ULYSSES_PIXELS = 320
 HOST_CALLS = 200  # K3 wrapper calls timed on the host clock, back to back
+NORM_REPS = 5  # timed launches of a fused norm at each shape
 # each operation class of utils.flops: the peak rate it can run at on the card
 # (the steps' float work is bf16, their int8 products K3's) and the kernel
 # group (utils.profiling.KERNEL_GROUPS) whose device time it runs in
@@ -362,9 +378,10 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 def _counter_modules():
     from mvoc_tpu_torch.ops import attention as A
+    from mvoc_tpu_torch.ops import norm as N
     from mvoc_tpu_torch.ops import s8gemm as S8
 
-    return A, S8
+    return A, S8, N
 
 
 def reset_counts() -> None:
@@ -385,7 +402,7 @@ def read_variants() -> dict:
     """{kernel: {design: launches}} of all kernels."""
     out = {}
     for mod in _counter_modules():
-        out.update({k: dict(v) for k, v in mod.LAUNCH_VARIANTS.items()})
+        out.update({k: dict(v) for k, v in getattr(mod, "LAUNCH_VARIANTS", {}).items()})
     return out
 
 
@@ -453,6 +470,10 @@ def run_slice(pipe, videos, masks, steps: int, seed: int, tag: str) -> dict:
     launches, shapes = read_counts()
     variants = read_variants()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    from mvoc_tpu_torch.ops import norm as N
+
+    if any(N.PLAIN_CALLS.values()):  # every norm of the slice takes the fused kernels
+        raise RuntimeError(f"{tag}: norms took the plain version on the card: {N.PLAIN_CALLS}")
     if not (torch.isfinite(final).all() and np.isfinite(video).all()):
         raise RuntimeError(f"{tag}: composite or decode gave non-finite values")
     if video.shape != (nf, size, size, 3):
@@ -1637,9 +1658,11 @@ def _mesh_stage(out: dict, name: str, fn):
         res = fn()
     torch.cuda.synchronize()
     launches, shapes = read_counts()
+    from mvoc_tpu_torch.ops import norm as N
+
     out["stages"][name] = dict(
         s=time.perf_counter() - t0, launches=launches, collectives=dict(coll.CALLS),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        plain_calls=dict(N.PLAIN_CALLS), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     out["shapes"][name] = shapes
     return res
 
@@ -1862,13 +1885,19 @@ def mesh_phase(cfg: dict, refs: dict) -> dict:
         if not rk["int8_finite"]:
             raise RuntimeError(f"mesh: rank {rk['rank']}'s int8 step gave non-finite values")
         st = rk["stages"]
-        for stage, need in (("invert", ("flash_attention", "frame_attention")),
-                            ("stream", ("flash_attention", "frame_attention")),
-                            ("fused", ("flash_attention", "frame_attention")),
-                            ("int8_step", ("flash_attention", "frame_attention", "s8_matmul"))):
+        norms = ("group_norm", "layer_norm")
+        for stage, need in (("invert", ("flash_attention", "frame_attention") + norms),
+                            ("stream", ("flash_attention", "frame_attention") + norms),
+                            ("fused", ("flash_attention", "frame_attention") + norms),
+                            ("int8_step", ("flash_attention", "frame_attention", "s8_matmul")
+                             + norms)):
             for name in need:
                 if st[stage]["launches"][name] <= 0:
                     failed.append(f"mesh rank {rk['rank']}: {name} never launched in {stage}")
+        for stage, v in st.items():  # the sharded-frame GroupNorm too takes the kernels
+            if any(v["plain_calls"].values()):
+                failed.append(f"mesh rank {rk['rank']}: norms took the plain version on the "
+                              f"card in {stage}: {v['plain_calls']}")
         steps = max(cfg["steps"] - 1, 1)
         rk["local_shapes"] = {name: sorted({str(sig) for by_kernel in rk["shapes"].values()
                                             for sig in by_kernel.get(name, {})})
@@ -2313,6 +2342,86 @@ def k3_host_costs(gen) -> dict:
     return dict(encode_us=encode_us, call_us=call_us)
 
 
+def norm_phase(name: str, sig, gen) -> dict:
+    """A fused norm (ops/norm.py) at a launched signature: its error against
+    the plain version from the same inputs (in chunks of samples or rows of
+    ~256 MB, whose fp32 temporaries stay under a few GB), whether a second
+    launch gives the same bits, the kernel's device time (kernel_ms: NORM_REPS
+    launches in one CUDA graph; call_ms: the same back to back from Python),
+    the plain version's over the whole input, and the
+    byte floor at 3.35 TB/s: GroupNorm reads x twice (statistics, then the
+    apply pass) and writes it once, LayerNorm reads and writes it once.
+    Beside them, one PyTorch library call of the same function (library_ms,
+    its error against the plain version: library_err): F.layer_norm, or
+    F.group_norm on x's channels-first view (then F.silu)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvoc_tpu_torch.ops import norm as N
+
+    shape, dt = sig[0], sig[-1]
+    dtype = getattr(torch, dt.split(".")[-1])
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    w = (1 + 0.3 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    b = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    if name == "group_norm":
+        _, groups, eps, silu, _ = sig
+        rows = x
+        first = (0, x.ndim - 1) + tuple(range(1, x.ndim - 1))  # channels-last -> first
+        back = tuple(first.index(i) for i in range(x.ndim))
+
+        def run():
+            return N.group_norm(x, w, b, groups, eps, silu=silu)
+
+        def plain(t):
+            return N.group_norm_plain(t, w, b, groups, eps, silu=silu)
+
+        def library():
+            y = F.group_norm(x.permute(first), groups, w, b, eps)
+            return F.silu(y) if silu else y
+
+        def library_nhwc():
+            return library().permute(back)
+        reads = 2
+    else:
+        _, eps, _ = sig
+        rows = x.reshape(-1, c)
+
+        def run():
+            return N.layer_norm(x, w, b, eps)
+
+        def plain(t):
+            return N.layer_norm_plain(t, w, b, eps)
+
+        def library():
+            return F.layer_norm(x, (c,), w, b, eps)
+        library_nhwc = library
+        reads = 1
+    out = run()
+    same = torch.equal(out, run())
+    n = rows.shape[0]
+    chunk = max(1, int(2.56e8 // (rows[0].numel() * x.element_size())))
+
+    def plain_all():
+        return torch.cat([plain(rows[i:i + chunk]) for i in range(0, n, chunk)])
+
+    ref = plain_all().reshape(shape)
+    err = (out.float() - ref.float()).abs().max().item()
+    library_err = (library_nhwc().float() - ref.float()).abs().max().item()
+    rel = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+    tol = rel * ref.abs().max().item()
+    del ref
+    ms = graph_ms(run, reps=NORM_REPS)
+    call_ms = cuda_ms(run, reps=NORM_REPS)
+    library_ms = graph_ms(library, reps=NORM_REPS)
+    plain_ms = cuda_ms(plain_all, reps=1, warmup=0)
+    nbytes = float((reads + 1) * x.numel() * x.element_size())
+    return dict(err=err, tol=tol, same=same, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_err=library_err, bytes=nbytes,
+                bound_ms=1e3 * nbytes / PEAK_BYTES)
+
+
 def bound(ph):
     t_ops = ph.get("bound_flops", ph["flops"]) / ph["peak"]
     t_bytes = ph["bytes"] / PEAK_BYTES
@@ -2713,6 +2822,46 @@ def main() -> int:
                                    f"{ph['tol']}")
             torch.cuda.empty_cache()
 
+    # the fused norms at every shape any path launched
+    from mvoc_tpu_torch.ops import norm as N
+
+    norm_paths = {"bf16": bf16["shapes"], "int8-mixed": int8["shapes"],
+                  "int8-full-step": full_shapes, "cli": cli["shapes"],
+                  "cli-tiled-decode": cli["tiled"]["shapes"], "cli-batched": cli_b["shapes"],
+                  "reuse": reuse["shapes"], "cli-reuse": cli_r["shapes"], "mesh": mesh["shapes"]}
+    norm_rows = []
+    for name in N.LAUNCHES:
+        launched: dict = {}
+        for path, shapes in norm_paths.items():
+            for sig, n in shapes.get(name, {}).items():
+                launched.setdefault(sig, {})[path] = n
+        if not launched:
+            raise RuntimeError(f"{name} was never launched")
+        for sig in sorted(launched):
+            t_row = time.perf_counter()
+            ph = norm_phase(name, sig, gen)
+            row = dict(kernel=name, shape=[list(sig[0])] + list(sig[1:]),
+                       wall_s=time.perf_counter() - t_row, launches_by_path=launched[sig],
+                       max_abs_err=ph["err"], tol=ph["tol"], repeat_equal=ph["same"], ms=ph["ms"],
+                       call_ms=ph["call_ms"], plain_ms=ph["plain_ms"],
+                       library_ms=ph["library_ms"], library_err=ph["library_err"],
+                       vs_library=ph["ms"] / ph["library_ms"], bound_ms=ph["bound_ms"],
+                       bound_by="bytes", bytes=ph["bytes"], bound_share=ph["bound_ms"] / ph["ms"])
+            norm_rows.append(row)
+            log(f"phase {name} {sig}: max_abs_err {ph['err']:.3g} (tol {ph['tol']:.3g}) "
+                f"repeat bitwise {ph['same']} kernel_ms {ph['ms']:.4f} (call_ms "
+                f"{ph['call_ms']:.4f}) plain_ms {ph['plain_ms']:.4f} library_ms "
+                f"{ph['library_ms']:.4f} ({row['vs_library']:.2f}x; library err "
+                f"{ph['library_err']:.3g}) bound_ms {ph['bound_ms']:.4f} (bytes at 3.35 TB/s) "
+                f"[{ph['bytes'] / ph['ms'] / 1e6:.1f} GB/s, {100 * row['bound_share']:.1f}% of "
+                f"the bound] launches {launched[sig]}")
+            if not ph["err"] <= ph["tol"]:
+                raise RuntimeError(f"{name} {sig}: error {ph['err']} over {ph['tol']}")
+            if not ph["same"]:
+                raise RuntimeError(f"{name} {sig}: two launches gave different bits")
+            torch.cuda.empty_cache()
+    table.extend(norm_rows)
+
     # each kernel's device time in one composite step of the path that ran
     # it: composite-only launches at each shape times that shape's kernel time
     per_step_ms = {}
@@ -2791,6 +2940,18 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in table if r["kernel"] == name),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"]))
+    for name in N.LAUNCHES:
+        rows = [r for r in norm_rows if r["kernel"] == name]
+        head = max(rows, key=lambda r: r["ms"] * sum(r["launches_by_path"].values()))
+        kernels.append(dict(
+            name=name, route="cuda", source="mvoc_tpu_torch/csrc/norm.cu",
+            replaces="none (XLA fuses the JAX package's jnp norms)",
+            launches=sum(sum(r["launches_by_path"].values()) for r in rows),
+            launches_by_path={p: sum(r["launches_by_path"].get(p, 0) for r in rows)
+                              for p in norm_paths},
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes",
+            library_ms=head["library_ms"], shape=head["shape"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

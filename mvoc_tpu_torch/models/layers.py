@@ -16,7 +16,7 @@ activation dtype.
 On a device mesh (parallel/mesh.py) the UNet forward runs each rank on its
 frames of the "seq" axis (`mesh.current_frame_shard()`), and the layers that
 cross frames exchange what they need: the temporal transformers' joint
-(F, H, W) GroupNorm all-reduces its sums over "seq" in fp32; temporal
+(F, H, W) GroupNorm all-gathers its fp32 partial moments over "seq"; temporal
 attention reshards frames to pixels and back (ops/attention.
 sharded_frame_attention) or runs ring / Ulysses context parallelism
 (ops/ring_attention); a temporal conv layer all-gathers its input frames
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvoc_tpu_torch.ops import attention as attn_ops
+from mvoc_tpu_torch.ops import norm as norm_ops
 from mvoc_tpu_torch.ops import ring_attention
 from mvoc_tpu_torch.parallel import collectives as coll
 from mvoc_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS, current_frame_shard, frame_shard
@@ -84,57 +85,42 @@ class TimestepEmbedding(nn.Module):
         return row_parallel(self.linear_2, F.silu(self.linear_1(sample)), self.tp)
 
 
-def _frame_sum(t: torch.Tensor, fs) -> torch.Tensor:
-    """Sums over this rank's frames -> sums over all frames (fp32)."""
-    return coll.all_reduce(t, fs.mesh, SEQ_AXIS)
-
-
 class GroupNorm(nn.Module):
     """torch nn.GroupNorm semantics on channels-last input with one leading
     batch dim (4-D [B, H, W, C] or 5-D [B, F, H, W, C] with joint (F, H, W)
-    statistics).  Two-pass centred variance in fp32; the affine is folded
-    into per-channel coefficients applied in the activation dtype.  A 5-D
-    input holding this rank's frames (a sharded frame shard) takes its
-    statistics over all frames: both passes' sums are all-reduced over
-    "seq"."""
+    statistics), then SiLU when built with silu=True (the resnets' and
+    temporal convs' norm -> silu, in the norm's epilogue).  Two-pass centred
+    variance in fp32; the affine is folded into per-channel coefficients
+    applied in the activation dtype (ops/norm.group_norm: the fused kernels
+    on CUDA, the plain version elsewhere), which read x contiguous: a view
+    (a permuted layout at batch 1) is copied once first.  A 5-D input holding
+    this rank's frames (a sharded frame shard) takes its statistics over all
+    frames: the partial moments of each rank's frames are all-gathered over
+    "seq" and merged in rank order."""
 
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 silu: bool = False):
         super().__init__()
         assert num_channels % num_groups == 0, (num_channels, num_groups)
         self.num_groups = num_groups
         self.eps = eps
+        self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[0], x.shape[-1]
-        g = self.num_groups
-        dims = tuple(range(1, x.ndim - 1))
-        bshape = (b,) + (1,) * len(dims) + (c,)
-        xf = x.float()
         fs = current_frame_shard()
+        gather = None
         if x.ndim == 5 and fs is not None and fs.sharded:
-            count = math.prod(x.shape[1:-1]) * fs.mesh.size_of(SEQ_AXIS)
-
-            def mean(t):
-                return _frame_sum(t.sum(dim=dims), fs) / count
-        else:
-            def mean(t):
-                return t.mean(dim=dims)
-        mean_c = mean(xf)                                            # [B, C]
-        mean_ch = mean_c.view(b, g, c // g).mean(-1).repeat_interleave(c // g, -1)
-        cen2_c = mean((xf - mean_ch.view(bshape)).square())
-        del xf
-        var_g = cen2_c.view(b, g, c // g).mean(-1)
-        inv_ch = torch.rsqrt(var_g + self.eps).repeat_interleave(c // g, -1)
-        w = self.weight.float()[None]
-        a_ch = (inv_ch * w).view(bshape).to(x.dtype)
-        b_ch = (self.bias.float()[None] - mean_ch * inv_ch * w).view(bshape).to(x.dtype)
-        return x * a_ch + b_ch
+            def gather(part):
+                return coll.all_gather(part[None], fs.mesh, SEQ_AXIS, dim=0)
+        return norm_ops.group_norm(x.contiguous(), self.weight, self.bias, self.num_groups,
+                                   self.eps, self.silu, gather=gather)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last dim with fp32 statistics."""
+    """LayerNorm over the last dim with fp32 statistics (ops/norm.layer_norm,
+    which reads x contiguous: a view is copied once first)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -143,11 +129,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
-        xn = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
-        return xn * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return norm_ops.layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
 
 
 class Conv2d(nn.Conv2d):
@@ -504,27 +486,27 @@ def effective_natural_layout(natural: bool, context_parallel: Optional[str]) -> 
 
 class ResnetBlock2D(nn.Module):
     """diffusers ResnetBlock2D (per frame): norm1 -> silu -> conv1 (+ the
-    time embedding through time_emb_proj) -> norm2 -> silu -> conv2; a 1x1
-    conv_shortcut when the channels change.  pnp_edit acts on the residual
-    branch before the shortcut add."""
+    time embedding through time_emb_proj) -> norm2 -> silu -> conv2, each
+    silu in its norm's epilogue; a 1x1 conv_shortcut when the channels
+    change.  pnp_edit acts on the residual branch before the shortcut add."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
                  eps: float = 1e-5, groups: int = 32):
         super().__init__()
-        self.norm1 = GroupNorm(groups, in_channels, eps=eps)
+        self.norm1 = GroupNorm(groups, in_channels, eps=eps, silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
-        self.norm2 = GroupNorm(groups, out_channels, eps=eps)
+        self.norm2 = GroupNorm(groups, out_channels, eps=eps, silu=True)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 pnp_edit: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         if pnp_edit is not None:
             h = pnp_edit(h)
         if self.conv_shortcut is not None:
@@ -533,7 +515,9 @@ class ResnetBlock2D(nn.Module):
 
 
 def _tconv_stage(in_dim: int, out_dim: int, groups: int) -> nn.Sequential:
-    return nn.Sequential(GroupNorm(groups, in_dim, eps=1e-5), nn.SiLU(),
+    """GroupNorm -> silu (in the norm's epilogue; index 1 keeps the place of
+    diffusers' SiLU, so the conv stays convN.2) -> Conv3d (3,1,1)."""
+    return nn.Sequential(GroupNorm(groups, in_dim, eps=1e-5, silu=True), nn.Identity(),
                          Conv3d(in_dim, out_dim, (3, 1, 1), padding=(1, 0, 0)))
 
 

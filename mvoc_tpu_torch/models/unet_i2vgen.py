@@ -494,7 +494,7 @@ class I2VGenXLUNet(nn.Module):
             self.up_blocks.append(UpBlock3D(cfg, prev_out, skips, out_ch,
                                             add_upsample=i < n - 1, cross_attn=i > 0,
                                             block_index=i))
-        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch0, eps=cfg.norm_eps)
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch0, eps=cfg.norm_eps, silu=True)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
         if cfg.temporal_cp is not None:
             self.set_parallel(cfg.attn_mesh, cfg.temporal_cp)
@@ -679,7 +679,7 @@ class I2VGenXLUNet(nn.Module):
                         pab_cache, pab_rec)
 
         with _scope("conv_norm_out"):
-            x = F.silu(self.conv_norm_out(x))
+            x = self.conv_norm_out(x)
         with _scope("conv_out"):  # with the out_conv injection site
             x = self.conv_out(x)
             if cfg.sites.out_conv:

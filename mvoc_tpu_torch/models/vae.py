@@ -61,16 +61,16 @@ class VAEResnetBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, groups: int):
         super().__init__()
-        self.norm1 = GroupNorm(groups, in_channels, eps=1e-6)
+        self.norm1 = GroupNorm(groups, in_channels, eps=1e-6, silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
-        self.norm2 = GroupNorm(groups, out_channels, eps=1e-6)
+        self.norm2 = GroupNorm(groups, out_channels, eps=1e-6, silu=True)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -154,7 +154,7 @@ class Encoder(nn.Module):
             _EncoderBlock(chans[max(i - 1, 0)], ch, cfg.layers_per_block, g, i < len(chans) - 1)
             for i, ch in enumerate(chans)])
         self.mid_block = MidBlock(chans[-1], g)
-        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6, silu=True)
         self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +162,7 @@ class Encoder(nn.Module):
         for blk in self.down_blocks:
             x = blk(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 class Decoder(nn.Module):
@@ -174,14 +174,14 @@ class Decoder(nn.Module):
         self.up_blocks = nn.ModuleList([
             _DecoderBlock(rev[max(i - 1, 0)], ch, cfg.layers_per_block + 1, g, i < len(rev) - 1)
             for i, ch in enumerate(rev)])
-        self.conv_norm_out = GroupNorm(g, rev[-1], eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, rev[-1], eps=1e-6, silu=True)
         self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             x = blk(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 class AutoencoderKL(nn.Module):

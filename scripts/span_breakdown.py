@@ -14,8 +14,9 @@ and aten op) and through the benchmark's own reduction
 Needs a CUDA card.  Prints one JSON line (with --out, also written to
 DIR/<cell>.json): the device time of the five UNet sub-blocks with the
 most elementwise time, of the five aten ops that launch the most work of
-the no-operation groups, the largest rows by span, and the idle time a
-step by the innermost span, with the share no span covers.
+the no-operation groups, the largest rows by span, the idle time a step by
+the innermost span, with the share no span covers, and the fused norms'
+launches and plain calls (ops/norm.py) over the cell's calls.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def breakdown(workload: str, seed: int, steps=None, out_dir=None, device=None,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mvoc_tpu_torch.ops import norm
     from mvoc_tpu_torch.utils import profiling
     from portbench import inputs as I
     from portbench import program as P
@@ -80,6 +82,8 @@ def breakdown(workload: str, seed: int, steps=None, out_dir=None, device=None,
                                   cfg["unet"]["in_channels"], dev)
         entry = dataclasses.replace(entry, seed=int(rng.integers(0, 2 ** 31 - 1)))
         entries.append((entry, P.write_stores(os.path.join(tmp, f"entry{e}"), entry)))
+
+    norm.reset_launch_counts()
 
     def cut_after(n):
         def cb(i):
@@ -153,6 +157,9 @@ def breakdown(workload: str, seed: int, steps=None, out_dir=None, device=None,
         "idle_ms_per_step_by_span_top15": _top({str(n): v / k for n, v in idle.items()}, 15),
         "unbooked_idle_share": (idle.get(None, 0.0) / gap) if gap else None,
         "busy_s": stretch.busy_s(), "wall_s": stretch.wall_s,
+        # the fused norms over the warm-up and the traced call: launches, and
+        # CUDA tensors that took a plain version (0 when the kernels serve all)
+        "norm_launches": dict(norm.LAUNCHES), "norm_plain_calls": dict(norm.PLAIN_CALLS),
         "span_names_among_kernels": span_kernels,
         "device_user_annotations": sum(1 for e in prof.events()
                                        if e.device_type == torch.autograd.DeviceType.CUDA

@@ -529,3 +529,182 @@ def test_counter_reads_the_same_operations_on_both_routes(cuda_device, kernel):
         assert counter.library_total() == 0
     want = flops.with_total({kernel: flops.kernel_flops(kernel, sig)})
     assert counts["cpu"] == counts["cuda"] == want
+
+
+# ---------------------------------------------------------------------------
+# the fused norms (csrc/norm.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+NORM_FP32_REL = 2e-5
+UNET_CHANNELS = (320, 640, 960, 1280, 1920, 2560)
+LN_WIDTHS = (4, 320, 512, 640, 1024, 1280)
+
+
+def _norm_tol(dtype, want):
+    return (NORM_FP32_REL if dtype == torch.float32 else BF16_REL) * want.abs().max().item()
+
+
+def _norm_affine(device, n, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return ((1 + 0.3 * torch.randn(n, generator=g, device=device)).to(dtype),
+            (0.2 * torch.randn(n, generator=g, device=device)).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("five_d", [False, True])
+@pytest.mark.parametrize("c", UNET_CHANNELS)
+def test_group_norm_kernel_matches_plain(cuda_device, c, five_d, eps, silu, dtype):
+    """Every UNet width with 32 groups, per-frame (4-D) and joint (5-D)
+    statistics, over a ragged last tile (9 x 16 pixels a frame)."""
+    from mvoc_tpu_torch.ops import norm
+
+    shape = (2, 3, 9, 16, c) if five_d else (3, 9, 16, c)
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    w, b = _norm_affine(cuda_device, c, dtype, c + 1)
+    launches, plain = norm.LAUNCHES["group_norm"], norm.PLAIN_CALLS["group_norm"]
+    got = norm.group_norm(x, w, b, 32, eps, silu=silu)
+    torch.cuda.synchronize()
+    assert norm.LAUNCHES["group_norm"] == launches + 1
+    assert norm.PLAIN_CALLS["group_norm"] == plain
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    want = norm.group_norm_plain(x, w, b, 32, eps, silu=silu).float()
+    assert (got.float() - want).abs().max().item() <= _norm_tol(dtype, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("d", LN_WIDTHS)
+def test_layer_norm_kernel_matches_plain(cuda_device, d, eps, dtype):
+    from mvoc_tpu_torch.ops import norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = (torch.randn(3, 301, d, generator=g, device=cuda_device) + 1).to(dtype)
+    w, b = _norm_affine(cuda_device, d, dtype, d + 1)
+    launches = norm.LAUNCHES["layer_norm"]
+    got = norm.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert norm.LAUNCHES["layer_norm"] == launches + 1
+    want = norm.layer_norm_plain(x, w, b, eps).float()
+    assert (got.float() - want).abs().max().item() <= _norm_tol(dtype, want)
+
+
+def _norm64(x, w, b, groups, eps):
+    """GroupNorm (groups) or LayerNorm (groups None) in float64, and the same
+    with the one-pass fp32 variance E[x^2] - E[x]^2 the kernels must not use."""
+    b_, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(b_, -1, groups, c // groups) if groups else x.reshape(-1, 1, 1, c)
+    dims = (1, 3)
+    out = []
+    for xs, one_pass in ((xg.double(), False), (xg.float(), True)):
+        mean = xs.mean(dims, keepdim=True)
+        var = ((xs * xs).mean(dims, keepdim=True) - mean * mean if one_pass
+               else ((xs - mean) ** 2).mean(dims, keepdim=True))
+        y = ((xs - mean) / torch.sqrt(var.clamp_min(0) + eps)).reshape(x.shape)
+        out.append((y * w.to(xs.dtype) + b.to(xs.dtype)).double())
+    return out
+
+
+@pytest.mark.cuda
+def test_norms_hold_a_mean_far_above_the_spread(cuda_device):
+    """fp32 input with |mean| = 100 x std: the one-pass variance misses the
+    fp32 tolerance against float64; the kernels' centred moments hold it."""
+    from mvoc_tpu_torch.ops import norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 3, 45, 80, 320, generator=g, device=cuda_device) + 100
+    w, b = _norm_affine(cuda_device, 320, torch.float32, 1)
+    cases = [(x, norm.group_norm(x, w, b, 32, 1e-6), 32, 1e-6)]
+    xs = x.reshape(6, 45, 80, 320)
+    cases.append((xs, norm.group_norm(xs, w, b, 32, 1e-6), 32, 1e-6))
+    rows = x.reshape(-1, 320)[:20000]
+    cases.append((rows, norm.layer_norm(rows, w, b, 1e-5), None, 1e-5))
+    for inp, got, groups, eps in cases:
+        want, one_pass = _norm64(inp, w, b, groups, eps)
+        tol = NORM_FP32_REL * want.abs().max().item()
+        assert (got.double() - want).abs().max().item() <= tol
+        assert (one_pass - want).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gn4", "gn5", "ln"])
+def test_norms_repeat_bit_for_bit(cuda_device, kind):
+    """Fixed-order reductions, no atomics: the same bits every run, at the
+    720p level's widths (many tiles a sample)."""
+    from mvoc_tpu_torch.ops import norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    if kind == "ln":
+        x = torch.randn(16 * 1440, 320, generator=g, device=cuda_device).bfloat16()
+        w, b = _norm_affine(cuda_device, 320, torch.bfloat16, 2)
+        run = lambda: norm.layer_norm(x, w, b, 1e-5)  # noqa: E731
+    else:
+        shape = (2, 90, 160, 320) if kind == "gn4" else (1, 16, 90, 160, 320)
+        x = torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+        w, b = _norm_affine(cuda_device, 320, torch.bfloat16, 2)
+        run = lambda: norm.group_norm(x, w, b, 32, 1e-6, silu=True)  # noqa: E731
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pieces", [2, 4])
+def test_group_norm_kernels_over_split_frames(cuda_device, pieces, dtype):
+    """A 16-frame 5-D x at the 720p level's widths split along its frames
+    as the ranks of a "seq" axis hold it: each piece's stats launch, the
+    partials of every piece handed to each in rank order, its finalize and
+    apply.  The pieces together are the whole video's GroupNorm (within the
+    plain tolerance of the unsplit kernel), every piece gets the same
+    coefficients bit for bit (a second replay equals the first), and each
+    piece on its own statistics is far off."""
+    from mvoc_tpu_torch.ops import norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(pieces)
+    x = (torch.randn(1, 16, 45, 80, 320, generator=g, device=cuda_device) + 0.5).to(dtype)
+    x[:, :8] += 2
+    w, b = _norm_affine(cuda_device, 320, dtype, 3)
+    xs = x.chunk(pieces, dim=1)
+    parts = [None] * pieces
+
+    def piece(r, replay):
+        def gather(part):
+            if not replay:
+                parts[r] = part.clone()
+                return torch.stack([part] * pieces)
+            assert torch.equal(part, parts[r])
+            return torch.stack(parts)
+        return norm.group_norm(xs[r], w, b, 32, 1e-6, silu=True, gather=gather)
+
+    plain = norm.PLAIN_CALLS["group_norm"]
+    for r in range(pieces):
+        piece(r, False)
+    got = torch.cat([piece(r, True) for r in range(pieces)], dim=1)
+    again = torch.cat([piece(r, True) for r in range(pieces)], dim=1)
+    torch.cuda.synchronize()
+    assert norm.PLAIN_CALLS["group_norm"] == plain
+    assert torch.equal(got, again)
+    want = norm.group_norm(x, w, b, 32, 1e-6, silu=True).float()
+    tol = _norm_tol(dtype, want)
+    assert (got.float() - want).abs().max().item() <= tol
+    local = torch.cat([norm.group_norm(t, w, b, 32, 1e-6, silu=True) for t in xs], dim=1)
+    assert (local.float() - want).abs().max().item() > 10 * tol
+
+
+@pytest.mark.cuda
+def test_norms_refuse_on_cuda(cuda_device):
+    from mvoc_tpu_torch.ops import norm
+
+    x = torch.zeros(2, 4, 4, 64, device=cuda_device)
+    w, b = torch.ones(64, device=cuda_device), torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.group_norm(x.transpose(1, 2), w, b, 32, 1e-5)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        norm.group_norm(x.half(), w, b, 32, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.layer_norm(x[:, :3], w, b, 1e-5)
