@@ -26,9 +26,10 @@ GOLDEN_SOURCES = (
     "scripts/torch_parity_goldens.py",
 )
 REGENERATE = "JAX_PLATFORMS=cpu python scripts/torch_parity_goldens.py"
-# tier-1 runs six xdist workers on one host, one of them busy with
-# tests/test_pipeline.py for most of the run; the port's test modules run
-# this many niceness steps below it
+# tier-1 runs six xdist workers on one host, which start on the JAX
+# package's compile-bound files (tests/tier1_pacing.py: QUEUE_HEAD); the
+# port's test modules, queued behind them, run this many niceness steps
+# below the last of those
 NICENESS = 10
 
 
